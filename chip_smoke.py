@@ -28,11 +28,26 @@ Phases, in order; any failure exits non-zero:
               beside its plain version, one scatter_reduce_ call on the
               same data (the yardstick; the port never calls it on its
               kernel path) and the bytes bound at 3.35 TB/s.
-Then one JSON line with the kernel's numbers, the nvidia-smi line, and
+  8. shard host : build_shard_data on the same graph (4 shards): the
+              stacked CSC lanes and the combined exchange's lanes.
+  9. shard sweep: the stacked kernel (K2) against its plain version, as
+              in phase 4, over small stacks (an empty shard, windows that
+              own no tile, hub rows) and the two full-width stacks.
+ 10. shard  : ShardEngine(mesh=LocalMesh(4, cuda)) for the allgather,
+              unicast and combined exchanges (BFS run and the 8-root
+              run_batch, WCC, PageRank 30, SSSP), K2's launch count set to
+              0 just before and read just after; each run against the
+              backend="ref" shard engine on the same exchange and against
+              phase 5's one-device engine, BFS by graph500's rules; the
+              wire words of each exchange beside the average degree.
+ 11. shard profile: phase 6 for each exchange.
+ 12. shard timing: K2 at the two full-width stacks, as in phase 7.
+Then one JSON line with both kernels' numbers, the nvidia-smi line, and
 the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -46,6 +61,7 @@ SCALE, EDGE_FACTOR, GRAPH_SEED, PARTS = 20, 16, 7, 4
 TILE_E, TILE_R = 512, 256
 BATCH = 8
 TIMING_ITERS = 50
+TIMING_ROUNDS = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 PAGERANK_RTOL, PAGERANK_ATOL = 1e-4, 1e-9
 KERNEL = {
@@ -54,6 +70,18 @@ KERNEL = {
     "source": "src/repro_torch/kernels/csrc/segment_combine.cu",
     "replaces": "src/repro/kernels/edge_gather.py:99",
 }
+KERNEL2 = {
+    "name": "segment_combine_windows",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/csrc/segment_combine.cu",
+    "replaces": "src/repro/kernels/edge_gather.py:136",
+}
+EXCHANGES = ("allgather", "unicast", "combined")
+# Small stacks for K2's sweep: (edges of each shard, segments, tile_e,
+# tile_r): an empty shard, windows that own no tile, hub rows.
+SWEEP_STACKS = [((300, 0, 45, 1), 130, 32, 16),
+                ((0, 500, 30, 2000), 2000, 64, 32),
+                ((4096, 700, 0, 64), 64, 256, 256)]
 SWEEP_SHAPES = [(0, 16, 32, 16), (1, 1, 32, 16), (500, 64, 64, 32),
                 (500, 2000, 64, 32), (777, 130, 128, 64),
                 (2048, 64, 256, 256)]
@@ -62,6 +90,11 @@ COMBINERS = ("add", "min", "max")
 TIMED = [("min", "int32", "BFS/WCC key, SSSP carry"),
          ("min", "float32", "SSSP key"),
          ("add", "float32", "PageRank")]
+# The shard path's K2 combines: the allgather exchange's receiver folds
+# (as K1's) and the combined exchange's source folds, which add the
+# send_act max to each superstep.
+TIMED_STACKED = {"csc": TIMED,
+                 "combined": TIMED + [("max", "int32", "send_act")]}
 
 
 def log(phase: str, **fields) -> None:
@@ -77,19 +110,25 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def event_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn`` over ``iters`` launches (CUDA events)."""
+def event_ms(torch, fn, iters: int, warmup: int = 3,
+             rounds: int = TIMING_ROUNDS) -> float:
+    """Milliseconds of one ``fn``: the median over ``rounds`` of the mean
+    over ``iters`` launches (CUDA events), so one stalled round does not
+    move the number."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return float(np.median(means))
 
 
 def bound_ms(layout, batch: int) -> float:
@@ -103,10 +142,20 @@ def bound_ms(layout, batch: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def bound_ms_stacked(layout, batch: int) -> float:
+    """K2's least time: ``bound_ms`` over the lanes the shards own (the
+    tiles a shorter shard is padded with are never read)."""
+    lanes = int(layout.tile_start[:, -1].sum()) * layout.tile_e
+    rows = layout.rel.shape[0] * layout.num_segments
+    nbytes = 4 * (lanes + layout.tile_start.numel() + batch * (lanes + rows))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def lane_values(torch, layout, combiner, dtype, batch, gen):
-    """Random (batch, lanes) values with the identity in padding lanes."""
+    """Random (batch, *rel.shape) values with the identity in padding
+    lanes."""
     from repro_torch.kernels.ref import identity_for
-    shape = (batch, layout.rel.numel())
+    shape = (batch,) + tuple(layout.rel.shape)
     device = layout.rel.device
     if dtype == torch.float32:
         vals = torch.randn(shape, generator=gen, device=device)
@@ -123,6 +172,14 @@ def plain(layout, vals, combiner):
                                  combiner=combiner, tile_e=layout.tile_e,
                                  tile_r=layout.tile_r,
                                  num_segments=layout.num_segments)
+
+
+def plain_stacked(layout, vals, combiner):
+    from repro_torch.kernels.edge_gather import segment_combine_windows_plain
+    return segment_combine_windows_plain(
+        layout.tile_start, layout.rel, vals, combiner=combiner,
+        tile_e=layout.tile_e, tile_r=layout.tile_r,
+        num_segments=layout.num_segments)
 
 
 def compare(torch, got, want, combiner, mass=None) -> float:
@@ -285,7 +342,8 @@ def same_result(got, want, name: str) -> None:
 
 def phase_main(torch, g, pg, kernel_engine, ref_engine, roots):
     """Run the main path through the kernel engine with the launch count
-    from 0; check each run; return the launch count of the whole path."""
+    from 0; check each run; return the launch count of the whole path and
+    the runs."""
     from repro_torch.kernels import edge_gather
     runs = [
         ("bfs", "run", {"root": int(roots[0])}, 1),
@@ -337,7 +395,7 @@ def phase_main(torch, g, pg, kernel_engine, ref_engine, roots):
                 log("check", algorithm="bfs", entry=entry, root=int(r),
                     graph500="ok", depth=depth)
         log("check", algorithm=name, entry=entry, versus_ref="ok")
-    return total
+    return total, results
 
 
 def phase_timing(torch, layout, device):
@@ -379,7 +437,7 @@ def phase_timing(torch, layout, device):
 
 
 def drive(torch, device):
-    """Phases 3-7. Returns the kernel's record for the JSON line."""
+    """Phases 3-12. Returns the kernels' records for the JSON line."""
     from repro_torch.core import algorithms as ALG
     from repro_torch.core.engine import Engine
 
@@ -409,18 +467,268 @@ def drive(torch, device):
     deg = g.out_degrees()
     rng = np.random.default_rng(GRAPH_SEED)
     roots = rng.choice(np.flatnonzero(deg > 0), size=BATCH, replace=False)
-    launches = phase_main(torch, g, pg, kernel_engine, ref_engine, roots)
+    launches, engine_runs = phase_main(torch, g, pg, kernel_engine,
+                                       ref_engine, roots)
 
     phase_profile(torch, kernel_engine, int(roots[0]))
     records = phase_timing(torch, layout, device)
+    kernel_engines.clear()
+    ref_engines.clear()
+    del layout
+    gc.collect()  # an engine and its superstep program form a cycle
     head = records[0]  # int32 min at B=1: the BFS/WCC key combine
-    return {**KERNEL, "launches": launches, "max_abs_err": max_err,
+    k1 = {**KERNEL, "launches": launches, "max_abs_err": max_err,
+          "ms": head["ms"], "plain_ms": head["plain_ms"],
+          "bound_ms": head["bound_ms"], "bound_by": "bytes",
+          "library_ms": head["library_ms"], "variants": records}
+    return [k1, drive_shard(torch, device, g, pg, roots, engine_runs)]
+
+
+def drive_shard(torch, device, g, pg, roots, engine_runs):
+    """Phases 8-12. Returns K2's record for the JSON line."""
+    from repro_torch.core.engine_shardmap import build_shard_data
+    t0 = time.perf_counter()
+    data = build_shard_data(pg, tile_e=TILE_E, tile_r=TILE_R)
+    meta = data[1]
+    log("shard_host", build_shard_data_s=round(time.perf_counter() - t0, 3),
+        n_tiles=meta.n_tiles, n_windows=meta.n_windows,
+        comb_max=meta.comb_max, comb_tiles=meta.comb_tiles,
+        comb_windows=meta.comb_windows, e_pair_max=meta.e_pair_max)
+    engine = shard_engines(torch, device, pg, data)
+    stacks = {"csc": engine("allgather", "bfs", "kernel")._csc,
+              "combined": engine("combined", "bfs", "kernel")._comb}
+    max_err = phase_sweep_stacked(torch, stacks, device)
+    launches = phase_shard(torch, device, g, engine, roots, engine_runs)
+    for exchange in EXCHANGES:
+        phase_profile(torch, lambda name: engine(exchange, name, "kernel"),
+                      int(roots[0]), exchange=exchange)
+    records = phase_timing_stacked(torch, stacks, device)
+    head = records[0]  # CSC int32 min at B=1: allgather's BFS/WCC key
+    return {**KERNEL2, "launches": launches, "max_abs_err": max_err,
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": "bytes",
             "library_ms": head["library_ms"], "variants": records}
 
 
-def phase_profile(torch, kernel_engine, root: int) -> None:
+def shard_engines(torch, device, pg, data):
+    """engine(exchange, algorithm, backend): a ShardEngine on all four
+    shards of the card, over the one host build ``data``; the last one
+    built of each (exchange, backend) is kept."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core.engine_shardmap import ShardEngine
+    from repro_torch.core.mesh import LocalMesh
+    mesh = LocalMesh(PARTS, device)
+    kept = {}
+
+    def engine(exchange, name, backend):
+        key = (exchange, backend)
+        if key in kept and kept[key].kernel.name == name:
+            return kept[key]
+        if kept.pop(key, None) is not None:
+            gc.collect()  # an engine and its superstep program form a cycle
+        t0 = time.perf_counter()
+        eng = ShardEngine(ALG.ALGORITHMS[name](), pg, mesh=mesh,
+                          exchange=exchange, backend=backend, tile_e=TILE_E,
+                          tile_r=TILE_R, shard_data=data)
+        log("shard_host", exchange=exchange, engine=name, backend=backend,
+            build_s=round(time.perf_counter() - t0, 3),
+            device_nbytes=eng.device_nbytes)
+        kept[key] = eng
+        return eng
+    return engine
+
+
+def phase_sweep_stacked(torch, full_stacks, device) -> float:
+    """K2 against its plain version on the card; phase 4's tolerances."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.layout import (StackedLayout, build_layout,
+                                            stack_layouts)
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(device=device).manual_seed(2)
+    stacks = []
+    for sizes, n_seg, tile_e, tile_r in SWEEP_STACKS:
+        st, _, _ = stack_layouts([build_layout(
+            np.sort(rng.integers(0, n_seg + 1, size=n)), n_seg,
+            tile_e=tile_e, tile_r=tile_r) for n in sizes])
+        stacks.append(StackedLayout(
+            torch.as_tensor(st["tile_start"], device=device),
+            torch.as_tensor(st["rel"], device=device), tile_e, tile_r,
+            n_seg))
+    stacks += list(full_stacks.values())
+    max_err, checks = 0.0, 0
+    for layout in stacks:
+        full = any(layout is f for f in full_stacks.values())
+        for combiner in COMBINERS:
+            for dtype in (torch.float32, torch.int32):
+                for batch in (1, BATCH):
+                    vals = lane_values(torch, layout, combiner, dtype,
+                                       batch, gen)
+                    if batch == 1:
+                        vals = vals[0]
+                    got = ops.segment_combine_stacked(vals, layout, combiner)
+                    torch.cuda.synchronize()
+                    want = plain_stacked(layout, vals, combiner)
+                    mass = None
+                    if full and combiner == "add":
+                        mass = plain_stacked(layout, vals.abs(), "add")
+                    torch.cuda.synchronize()
+                    max_err = max(max_err, compare(torch, got, want,
+                                                   combiner, mass))
+                    checks += 1
+                    del vals, got, want, mass
+    log("shard_sweep", checks=checks, max_abs_err=max_err,
+        **{f"{k}_lanes": tuple(v.rel.shape) for k, v in full_stacks.items()},
+        **{f"{k}_windows": v.tile_start.shape[1] - 1
+           for k, v in full_stacks.items()})
+    return max_err
+
+
+def k2_calls(exchange: str, kernel) -> int:
+    """K2 launches a superstep: allgather folds the key, plus `got` for a
+    kernel that is not got_from_identity and the carry; combined folds the
+    key and send_act at the source, plus the carry; unicast none."""
+    extra = kernel.carry_dtype is not None
+    if exchange == "allgather":
+        return 1 + (not kernel.got_from_identity) + extra
+    return 2 + extra if exchange == "combined" else 0
+
+
+def same_as_engine(got, want, name: str) -> None:
+    """A shard-engine run against the one-device engine's: states,
+    supersteps and messages (a per-query state leaf is held once per shard
+    by the shard engine)."""
+    if (got.supersteps, got.messages) != (want.supersteps, want.messages):
+        raise AssertionError(f"{name}: shard engine supersteps/messages "
+                             f"{got.supersteps}/{got.messages} != engine "
+                             f"{want.supersteps}/{want.messages}")
+    for k, v in want.state.items():
+        v = np.broadcast_to(v, got.state[k].shape)
+        if name == "pagerank" and k == "score":
+            np.testing.assert_allclose(got.state[k], v, rtol=PAGERANK_RTOL,
+                                       atol=PAGERANK_ATOL)
+        elif not np.array_equal(got.state[k], v):
+            raise AssertionError(f"{name}: state[{k!r}] differs from the "
+                                 "one-device engine")
+
+
+def phase_shard(torch, device, g, engine, roots, engine_runs) -> int:
+    """The shard path: every exchange's runs through the kernel shard
+    engine with K2's launch count from 0; then each run against the
+    backend="ref" shard engine and the one-device engine. Returns the
+    launch count of the whole path."""
+    from repro_torch.kernels import edge_gather
+    for exchange in EXCHANGES:  # warm-up, untimed
+        engine(exchange, "bfs", "kernel").run(root=int(roots[0]))
+    torch.cuda.synchronize()
+    edge_gather.windows_launches = 0
+    results, words = [], {}
+    for exchange in EXCHANGES:
+        for name, entry, kwargs, _ in engine_runs:
+            eng = engine(exchange, name, "kernel")
+            before = edge_gather.windows_launches
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = getattr(eng, entry)(**kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = edge_gather.windows_launches - before
+            outs = out if isinstance(out, list) else [out]
+            steps = max(r.supersteps for r in outs)
+            messages = sum(r.messages for r in outs)
+            wire = outs[0].comm["wire_words"]
+            words[exchange, name, entry] = wire
+            log("shard", exchange=exchange, algorithm=name, entry=entry,
+                queries=len(outs), supersteps=steps, messages=messages,
+                wire_words=wire, wall_s=round(wall, 6),
+                teps=round(messages / wall), launches=launched,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+            calls = k2_calls(exchange, eng.kernel)
+            if launched != steps * calls:
+                raise AssertionError(
+                    f"{exchange} {name} {entry}: {launched} launches for "
+                    f"{steps} supersteps x {calls} calls")
+            results.append((exchange, name, entry, kwargs, outs))
+    total = edge_gather.windows_launches
+    log("shard", launches_total=total)
+
+    avg_degree = g.num_edges / g.num_vertices
+    for name, entry, _, _ in engine_runs:
+        uni = words["unicast", name, entry]
+        comb = words["combined", name, entry]
+        log("shard", algorithm=name, entry=entry,
+            wire_words_allgather=words["allgather", name, entry],
+            wire_words_unicast=uni, wire_words_combined=comb,
+            unicast_over_combined=uni / comb, average_degree=avg_degree)
+
+    by_run = {(name, entry): outs for name, entry, _, outs in engine_runs}
+    for exchange, name, entry, kwargs, outs in results:
+        want = getattr(engine(exchange, name, "ref"), entry)(**kwargs)
+        want = want if isinstance(want, list) else [want]
+        for got, ref, one in zip(outs, want, by_run[name, entry]):
+            same_result(got, ref, name)
+            same_as_engine(got, one, name)
+        if name == "bfs":
+            for r, res in zip(np.atleast_1d(kwargs["root"]), outs):
+                validate_bfs(torch, g, res.state["parent"], int(r),
+                             res.supersteps, res.messages, device)
+        log("check", exchange=exchange, algorithm=name, entry=entry,
+            versus_ref="ok", versus_engine="ok",
+            graph500="ok" if name == "bfs" else "-")
+    return total
+
+
+def phase_timing_stacked(torch, stacks, device):
+    """K2's kernel, plain-version and scatter_reduce_ times at the two
+    full-width stacks, for the shard path's combines."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import REDUCE, identity_for
+    gen = torch.Generator(device=device).manual_seed(3)
+    dtypes = {"float32": torch.float32, "int32": torch.int32}
+    records = []
+    for stack, layout in stacks.items():
+        n_tiles = layout.rel.shape[1] // layout.tile_e
+        tile = torch.arange(n_tiles, dtype=torch.int32, device=device)
+        window = torch.searchsorted(
+            layout.tile_start[:, 1:].contiguous(),
+            tile.expand(layout.rel.shape[0], -1).contiguous(),
+            right=True).repeat_interleave(layout.tile_e, dim=1)
+        rows = torch.where(
+            (layout.rel < layout.tile_r)
+            & (window < layout.tile_start.shape[1] - 1),
+            window * layout.tile_r + layout.rel, layout.num_segments)
+        rows = rows.clamp(max=layout.num_segments)
+        del window
+        for combiner, dname, used_by in TIMED_STACKED[stack]:
+            dtype = dtypes[dname]
+            for batch in (1, BATCH):
+                vals = lane_values(torch, layout, combiner, dtype, batch,
+                                   gen)
+                index = rows.expand(vals.shape)
+                out = torch.full(vals.shape[:-1] + (layout.num_segments + 1,),
+                                 identity_for(combiner, dtype), dtype=dtype,
+                                 device=device)
+                ms = event_ms(torch, lambda: ops.segment_combine_stacked(
+                    vals, layout, combiner), TIMING_ITERS)
+                plain_ms = event_ms(torch, lambda: plain_stacked(
+                    layout, vals, combiner), 10)
+                library_ms = event_ms(torch, lambda: out.scatter_reduce_(
+                    2, index, vals, REDUCE[combiner], include_self=True),
+                    TIMING_ITERS)
+                rec = {"stack": stack, "combiner": combiner, "dtype": dname,
+                       "batch": batch, "used_by": used_by, "ms": ms,
+                       "plain_ms": plain_ms,
+                       "bound_ms": bound_ms_stacked(layout, batch),
+                       "library_ms": library_ms}
+                rec["bound_share"] = rec["bound_ms"] / ms
+                log("shard_timing",
+                    **{k: v for k, v in rec.items() if k != "used_by"})
+                records.append(rec)
+                del vals, index, out
+    return records
+
+
+def phase_profile(torch, kernel_engine, root: int, **label) -> None:
     """Where a superstep's device time goes: torch.profiler over one BFS
     run and one PageRank run, the busiest operators by self device time,
     and the device's busy share of the wall time."""
@@ -443,13 +751,14 @@ def phase_profile(torch, kernel_engine, root: int) -> None:
             return getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0.0))
         busy = sum(dev_us(e) for e in kernels) / 1e6
-        log("profile", algorithm=name, supersteps=res.supersteps,
+        log("profile", **label, algorithm=name, supersteps=res.supersteps,
             wall_s=round(wall, 6), device_busy_s=round(busy, 6),
             idle_share=round(1 - busy / wall, 4),
             device_launches=sum(e.count for e in kernels))
         for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-            log("profile", algorithm=name, kernel=repr(e.key[:100]),
-                calls=e.count, self_device_ms=round(dev_us(e) / 1e3, 4))
+            log("profile", **label, algorithm=name,
+                kernel=repr(e.key[:100]), calls=e.count,
+                self_device_ms=round(dev_us(e) / 1e3, 4))
 
 
 def main() -> int:
@@ -467,8 +776,8 @@ def main() -> int:
         nvidia_smi=repr(smi), torch=torch.__version__,
         cuda=torch.version.cuda)
     phase_build()
-    record = drive(torch, torch.device("cuda"))
-    print(json.dumps({"kernels": [record]}), flush=True)
+    records = drive(torch, torch.device("cuda"))
+    print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -30,7 +30,8 @@ from .gas import GasKernel
 from .partition import PartitionedGraph
 from .stepper import SuperstepProgram
 
-__all__ = ["Engine", "EngineResult", "collect", "resolve_device"]
+__all__ = ["Engine", "EngineResult", "batch_size", "collect",
+           "query_tensors", "resolve_device"]
 
 HARD_SUPERSTEP_CAP = 100_000
 
@@ -265,14 +266,6 @@ class Engine:
         broadcast puts on the wire, surfaced as ``comm["wire_words"]``."""
         return "bcast_filtered_words"
 
-    def _check_query_kwargs(self, kwargs: Dict[str, Any]) -> None:
-        unknown = set(kwargs) - set(self.kernel.query_params)
-        if unknown:
-            raise ValueError(
-                f"kernel {self.kernel.name!r} takes query params "
-                f"{tuple(self.kernel.query_params)}, got unexpected "
-                f"{sorted(unknown)}")
-
     def _run(self, max_supersteps, qkw, batch) -> "list[EngineResult]":
         cap = max_supersteps or self.kernel.max_supersteps or HARD_SUPERSTEP_CAP
         carry = self._prog.run_loop(self._data, cap, self.params, qkw, batch)
@@ -294,23 +287,12 @@ class Engine:
             ))
         return results
 
-    def _query_tensor(self, v) -> torch.Tensor:
-        """A per-query parameter as a (B, 1, 1) tensor on the device."""
-        t = torch.as_tensor(np.atleast_1d(np.asarray(v)), device=self.device)
-        if t.dim() != 1:
-            raise ValueError(f"query parameters must be scalars or (B,) "
-                             f"arrays, got shape {tuple(t.shape)}")
-        return t.view(-1, 1, 1)
-
     def run(self, max_supersteps: Optional[int] = None,
             **query_kwargs) -> EngineResult:
         """Single query. ``query_kwargs`` (e.g. ``root=7``) override the
         kernel's defaults in ``init_state``."""
-        self._check_query_kwargs(query_kwargs)
-        qkw = {kk: self._query_tensor(v) for kk, v in query_kwargs.items()}
-        if any(t.shape[0] != 1 for t in qkw.values()):
-            raise ValueError("run takes scalar query parameters; use "
-                             "run_batch for arrays")
+        qkw = query_tensors(self.kernel, query_kwargs, self.device,
+                            batch=False)
         return self._run(max_supersteps, qkw, 1)[0]
 
     def run_batch(self, max_supersteps: Optional[int] = None,
@@ -319,14 +301,42 @@ class Engine:
         maps the kernel's ``query_params`` (e.g. ``root``) to (B,) arrays.
         Returns one :class:`EngineResult` per query, bit-identical to B
         sequential :meth:`run` calls."""
-        if not query_arrays:
-            raise ValueError(
-                "run_batch needs at least one per-query array, e.g. "
-                "root=np.array([...]); see GasKernel.query_params")
-        self._check_query_kwargs(query_arrays)
-        qkw = {kk: self._query_tensor(v) for kk, v in query_arrays.items()}
-        sizes = {kk: v.shape[0] for kk, v in qkw.items()}
-        batch = next(iter(sizes.values()))
-        if any(b != batch for b in sizes.values()):
-            raise ValueError(f"inconsistent query batch sizes: {sizes}")
-        return self._run(max_supersteps, qkw, batch)
+        qkw = query_tensors(self.kernel, query_arrays, self.device,
+                            batch=True)
+        return self._run(max_supersteps, qkw, batch_size(qkw))
+
+
+def query_tensors(kernel: GasKernel, query_kwargs: Dict[str, Any], device,
+                  *, batch: bool) -> Dict[str, torch.Tensor]:
+    """Checked query parameters as (B, 1, 1) tensors on ``device``: scalars
+    for ``run`` (``batch=False``), (B,) arrays for ``run_batch``."""
+    if batch and not query_kwargs:
+        raise ValueError(
+            "run_batch needs at least one per-query array, e.g. "
+            "root=np.array([...]); see GasKernel.query_params")
+    unknown = set(query_kwargs) - set(kernel.query_params)
+    if unknown:
+        raise ValueError(
+            f"kernel {kernel.name!r} takes query params "
+            f"{tuple(kernel.query_params)}, got unexpected "
+            f"{sorted(unknown)}")
+    out = {}
+    for kk, v in query_kwargs.items():
+        t = torch.as_tensor(np.atleast_1d(np.asarray(v)), device=device)
+        if t.dim() != 1:
+            raise ValueError(f"query parameters must be scalars or (B,) "
+                             f"arrays, got shape {tuple(t.shape)}")
+        if not batch and t.shape[0] != 1:
+            raise ValueError("run takes scalar query parameters; use "
+                             "run_batch for arrays")
+        out[kk] = t.view(-1, 1, 1)
+    return out
+
+
+def batch_size(qkw: Dict[str, torch.Tensor]) -> int:
+    """The common leading size of the query tensors."""
+    sizes = {kk: v.shape[0] for kk, v in qkw.items()}
+    batch = next(iter(sizes.values()))
+    if any(b != batch for b in sizes.values()):
+        raise ValueError(f"inconsistent query batch sizes: {sizes}")
+    return batch

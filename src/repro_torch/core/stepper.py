@@ -13,7 +13,7 @@ run of it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -59,18 +59,24 @@ class SuperstepProgram:
     """init/step/alive for one (kernel, graph layout, deliver) triple.
 
     ``deliver(data, payload, active)`` returns ``(acc, got, carry_vals,
-    aux)`` where ``aux`` is a dict of (B,) per-superstep counts folded into
+    aux)`` where ``aux`` is a dict of per-superstep counts folded into
     the running stats by ``update_stats(stats, data, active, aux)``.
-    ``data`` needs ``vert_gid``, ``out_deg`` and ``vert_valid``, (P, Vm).
+    ``data`` needs ``vert_gid``, ``out_deg`` and ``vert_valid``, (P, Vm)
+    (or the process's own shards of them). ``global_any`` reduces the
+    (B,) live bits of this process's shards across the mesh (the
+    identity for the one-device engine, ``pmax`` for the shard engine).
     """
 
     def __init__(self, kernel, deliver: Callable[..., Any], *,
                  init_stats: Callable[[int], Dict[str, torch.Tensor]],
-                 update_stats: Callable[..., Dict[str, torch.Tensor]]):
+                 update_stats: Callable[..., Dict[str, torch.Tensor]],
+                 global_any: Optional[Callable[[torch.Tensor],
+                                               torch.Tensor]] = None):
         self.kernel = kernel
         self.deliver = deliver
         self.init_stats = init_stats
         self.update_stats = update_stats
+        self.global_any = global_any or (lambda b: b)
 
     def _applied(self, data, state, superstep):
         batch = superstep.shape[0]
@@ -122,13 +128,16 @@ class SuperstepProgram:
         return self.step_apply(data, self.step_exchange(data, carry))
 
     def alive(self, carry: StepCarry) -> torch.Tensor:
-        """(B,) bool: any vertex of the query still active."""
-        return carry.active.flatten(1).any(dim=1)
+        """(B,) bool: any vertex of the query still active, on any shard
+        of the mesh."""
+        return self.global_any(carry.active.flatten(1).any(dim=1))
 
     def run_loop(self, data, cap: int, params: Dict[str, Any],
                  query_kwargs: Dict[str, Any], batch: int) -> StepCarry:
         """Run every query to quiescence (or ``cap`` supersteps); finished
-        queries are frozen. One host read of the live bits a superstep."""
+        queries are frozen. One host read of the live bits a superstep,
+        after they are reduced across the mesh, so every process of a
+        mesh takes the same number of supersteps."""
         carry = self.init_carry(data, params, query_kwargs, batch)
         while True:
             live = self.alive(carry) & (carry.superstep < cap)

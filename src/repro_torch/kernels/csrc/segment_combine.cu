@@ -1,9 +1,17 @@
-// Windowed semiring segment-combine for Hopper (sm_90a).
+// Windowed semiring segment-combine for Hopper (sm_90a), two entries.
 //
-// Replaces repro/kernels/edge_gather.py:segment_combine_pallas (the only
+// K1, gravfm_segment_combine, replaces
+// repro/kernels/edge_gather.py:segment_combine_pallas (the only
 // pl.pallas_call of the JAX package) together with the epilogue of
 // segment_combine_windows (unwritten windows -> identity, slice to
-// num_segments).
+// num_segments), over one layout.
+//
+// K2, gravfm_segment_combine_windows, replaces
+// repro/kernels/edge_gather.py:segment_combine_windows as the shard engine
+// calls it: the same function over a stack of per-shard layouts (one
+// tile_start and rel row per shard, vals (batch, shard, lane)) in one
+// launch, one block per (window, query x shard). Its bound and design are
+// K1's; the blocks of the extra grid rows are independent.
 //
 // What it computes. The lanes of a static EdgeLayout are sorted by
 // destination segment and cut into tiles of tile_e lanes; window w owns
@@ -100,26 +108,24 @@ __device__ __forceinline__ void atomic_fold(T* addr, T v) {
   }
 }
 
+// One block's whole job, shared by both kernels: fold the 16-byte lane
+// vectors [q_lo, q_hi) of one lane row (rel, vals) into tile_r shared
+// accumulators `acc`, then store them to out[row0 .. row0 + tile_r),
+// bounded by num_segments.
 template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-segment_combine_kernel(const int* __restrict__ tile_start,
-                       const int* __restrict__ rel,
-                       const T* __restrict__ vals, T* __restrict__ out,
-                       long long num_lanes, int num_segments, int tile_e,
-                       int tile_r) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);
-  const int w = blockIdx.x;
-  const long long b = blockIdx.y;
-
+__device__ __forceinline__ void fold_window(T* acc,
+                                            const int* __restrict__ rel,
+                                            const T* __restrict__ vals,
+                                            T* __restrict__ out,
+                                            long long q_lo, long long q_hi,
+                                            long long row0,
+                                            int num_segments, int tile_r) {
   for (int r = threadIdx.x; r < tile_r; r += blockDim.x) acc[r] = identity<T, OP>();
   __syncthreads();
 
   using V4 = typename Vec4<T>::type;
   const int4* rel4 = reinterpret_cast<const int4*>(rel);
-  const V4* vals4 = reinterpret_cast<const V4*>(vals + b * num_lanes);
-  const long long q_lo = (long long)tile_start[w] * tile_e / 4;
-  const long long q_hi = (long long)tile_start[w + 1] * tile_e / 4;
+  const V4* vals4 = reinterpret_cast<const V4*>(vals);
   // The thread's open run: row `cur` (tile_r = none) with partial `part`.
   // It stays open across the thread's strided vectors, so a hub row that
   // spans many tiles costs each thread one atomic, not one per vector.
@@ -144,12 +150,51 @@ segment_combine_kernel(const int* __restrict__ tile_start,
   if (cur < tile_r) atomic_fold<T, OP>(&acc[cur], part);
   __syncthreads();
 
-  const long long row0 = (long long)w * tile_r;
-  T* out_b = out + b * num_segments;
   for (int r = threadIdx.x; r < tile_r; r += blockDim.x) {
     const long long row = row0 + r;
-    if (row < num_segments) out_b[row] = acc[r];
+    if (row < num_segments) out[row] = acc[r];
   }
+}
+
+// K1: block (w, b) folds window w of the one layout for query b.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads)
+segment_combine_kernel(const int* __restrict__ tile_start,
+                       const int* __restrict__ rel,
+                       const T* __restrict__ vals, T* __restrict__ out,
+                       long long num_lanes, int num_segments, int tile_e,
+                       int tile_r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int w = blockIdx.x;
+  const long long b = blockIdx.y;
+  fold_window<T, OP>(reinterpret_cast<T*>(smem_raw), rel,
+                     vals + b * num_lanes, out + b * num_segments,
+                     (long long)tile_start[w] * tile_e / 4,
+                     (long long)tile_start[w + 1] * tile_e / 4,
+                     (long long)w * tile_r, num_segments, tile_r);
+}
+
+// K2: block (w, b * n_shards + s) folds window w of shard s's layout for
+// query b. Shard s reads its own tile_start row, so the tiles a shorter
+// shard was padded with (past its tile_start[s][n_windows]) are never read.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads)
+segment_combine_windows_kernel(const int* __restrict__ tile_start,
+                               const int* __restrict__ rel,
+                               const T* __restrict__ vals,
+                               T* __restrict__ out, int n_windows,
+                               int n_shards, long long num_lanes,
+                               int num_segments, int tile_e, int tile_r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int w = blockIdx.x;
+  const long long bs = blockIdx.y;
+  const long long s = bs % n_shards;
+  const int* ts = tile_start + s * (n_windows + 1);
+  fold_window<T, OP>(reinterpret_cast<T*>(smem_raw), rel + s * num_lanes,
+                     vals + bs * num_lanes, out + bs * num_segments,
+                     (long long)ts[w] * tile_e / 4,
+                     (long long)ts[w + 1] * tile_e / 4,
+                     (long long)w * tile_r, num_segments, tile_r);
 }
 
 template <typename T, int OP>
@@ -162,6 +207,20 @@ cudaError_t launch(const int* tile_start, const int* rel, const void* vals,
   segment_combine_kernel<T, OP><<<grid, kThreads, smem, stream>>>(
       tile_start, rel, static_cast<const T*>(vals), static_cast<T*>(out),
       num_lanes, num_segments, tile_e, tile_r);
+  return cudaGetLastError();
+}
+
+template <typename T, int OP>
+cudaError_t launch_windows(const int* tile_start, const int* rel,
+                           const void* vals, void* out, int n_windows,
+                           int n_shards, int batch, long long num_lanes,
+                           int num_segments, int tile_e, int tile_r,
+                           cudaStream_t stream) {
+  const dim3 grid(n_windows, batch * n_shards);
+  const size_t smem = (size_t)tile_r * sizeof(T);
+  segment_combine_windows_kernel<T, OP><<<grid, kThreads, smem, stream>>>(
+      tile_start, rel, static_cast<const T*>(vals), static_cast<T*>(out),
+      n_windows, n_shards, num_lanes, num_segments, tile_e, tile_r);
   return cudaGetLastError();
 }
 
@@ -193,6 +252,36 @@ extern "C" int gravfm_segment_combine(const int* tile_start, const int* rel,
       return launch<int, kMin>(tile_start, rel, vals, out, n_windows, batch, num_lanes, num_segments, tile_e, tile_r, s);
     case kInt32 * 3 + kMax:
       return launch<int, kMax>(tile_start, rel, vals, out, n_windows, batch, num_lanes, num_segments, tile_e, tile_r, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// C entry point of K2, bound with ctypes. tile_start is (n_shards,
+// n_windows + 1), rel is (n_shards, num_lanes), vals is (batch, n_shards,
+// num_lanes) and out is (batch, n_shards, num_segments), all contiguous;
+// tile_start[s][n_windows] * tile_e <= num_lanes for every shard s. The
+// other conditions are K1's. Launches on `stream`, does not synchronise,
+// returns the cudaError_t of the launch (0 = cudaSuccess).
+extern "C" int gravfm_segment_combine_windows(
+    const int* tile_start, const int* rel, const void* vals, void* out,
+    int n_windows, int n_shards, int batch, long long num_lanes,
+    int num_segments, int tile_e, int tile_r, int combiner, int dtype,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype * 3 + combiner) {
+    case kFloat32 * 3 + kAdd:
+      return launch_windows<float, kAdd>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+    case kFloat32 * 3 + kMin:
+      return launch_windows<float, kMin>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+    case kFloat32 * 3 + kMax:
+      return launch_windows<float, kMax>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+    case kInt32 * 3 + kAdd:
+      return launch_windows<int, kAdd>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+    case kInt32 * 3 + kMin:
+      return launch_windows<int, kMin>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+    case kInt32 * 3 + kMax:
+      return launch_windows<int, kMax>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,16 +11,21 @@ load-time edge-list preparation. Guarantees:
   * per-window edge runs padded to a multiple of ``tile_e`` so no tile
     straddles a window boundary,
   * empty windows own zero tiles (the kernel stores the identity there).
+
+:func:`stack_layouts` stacks per-shard layouts of one segment count onto
+a leading shard axis (the shard engine's layout); :class:`StackedLayout`
+is what the stacked combine reads on the device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["EdgeLayout", "DeviceLayout", "build_layout"]
+__all__ = ["EdgeLayout", "DeviceLayout", "StackedLayout", "build_layout",
+           "stack_layouts"]
 
 
 class DeviceLayout(NamedTuple):
@@ -29,6 +34,17 @@ class DeviceLayout(NamedTuple):
     window_id: torch.Tensor   # (n_tiles,) int32, non-decreasing
     tile_start: torch.Tensor  # (n_windows+1,) int32
     rel: torch.Tensor         # (n_tiles*tile_e,) int32; pads hold tile_r
+    tile_e: int
+    tile_r: int
+    num_segments: int
+
+
+class StackedLayout(NamedTuple):
+    """Per-shard layouts on a leading shard axis, as int32 tensors on one
+    device: shard ``s``'s window ``w`` owns the tiles ``[tile_start[s, w],
+    tile_start[s, w+1])`` of its lane row ``rel[s]``."""
+    tile_start: torch.Tensor  # (S, n_windows+1) int32
+    rel: torch.Tensor         # (S, n_tiles*tile_e) int32; pads hold tile_r
     tile_e: int
     tile_r: int
     num_segments: int
@@ -121,3 +137,43 @@ def build_layout(seg_ids: np.ndarray, num_segments: int, *,
         window_id=window_id.astype(np.int32), rel=rel,
         lane_of_edge=lane.astype(np.int32), lane_valid=lane_valid,
         window_written=window_written, tile_start=tile_start)
+
+
+def stack_layouts(layouts: Sequence[EdgeLayout]
+                  ) -> Tuple[Dict[str, np.ndarray], int, int]:
+    """Stack per-shard layouts of one segment count and tile shape onto a
+    leading shard axis, padded to the longest one's tile count. Returns
+    ``(arrays, n_tiles, n_windows)``, ``arrays`` holding ``window_id``
+    ``(S, n_tiles)``, ``rel`` ``(S, L)``, ``window_written``
+    ``(S, n_windows)`` and ``tile_start`` ``(S, n_windows+1)``.
+
+    ``window_id``, ``rel`` and ``window_written`` are the JAX shard
+    engine's arrays: a shard's pad tiles point at its last window and hold
+    ``rel == tile_r``. ``tile_start`` stops at each shard's own tile
+    count, so the CUDA grid never reads a pad tile. The stacked combine
+    leaves the identity in every window that owns no tile, which stands in
+    for the JAX kernel's ``window_written`` epilogue only if no unwritten
+    window owns a tile: checked here."""
+    first = layouts[0]
+    shape = (first.num_segments, first.tile_e, first.tile_r)
+    n_tiles = max(lo.n_tiles for lo in layouts)
+    n_windows = first.n_windows
+    S, L = len(layouts), n_tiles * first.tile_e
+    wid = np.zeros((S, n_tiles), np.int32)
+    rel = np.full((S, L), first.tile_r, np.int32)
+    written = np.zeros((S, n_windows), bool)
+    tile_start = np.zeros((S, n_windows + 1), np.int32)
+    for s, lo in enumerate(layouts):
+        if (lo.num_segments, lo.tile_e, lo.tile_r) != shape:
+            raise ValueError("stacked layouts need one segment count and "
+                             "tile shape")
+        if (np.diff(lo.tile_start)[~lo.window_written] != 0).any():
+            raise ValueError(f"shard {s}: a window marked unwritten owns "
+                             "tiles")
+        wid[s, :lo.n_tiles] = lo.window_id
+        wid[s, lo.n_tiles:] = lo.window_id[-1]
+        rel[s, :lo.num_lanes] = lo.rel
+        written[s] = lo.window_written
+        tile_start[s] = lo.tile_start
+    return (dict(window_id=wid, rel=rel, window_written=written,
+                 tile_start=tile_start), n_tiles, n_windows)

@@ -16,6 +16,8 @@ from repro_torch.core import algorithms as TA
 from repro_torch.core import graph as TG
 from repro_torch.core import partition as TPT
 from repro_torch.core.engine import Engine
+from repro_torch.core.engine_shardmap import ShardEngine
+from repro_torch.core.mesh import LocalMesh
 
 # The tensors here are tiny: one CPU thread keeps torch's thread pool off
 # the cores that parallel test workers share.
@@ -67,4 +69,17 @@ def test_engine_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(TA.bfs(), pg, device="cuda")
     res = Engine(TA.bfs(), pg, device="cpu").run()
+    assert res.state["parent"][0] == 0 and np.all(res.state["parent"] >= -1)
+
+
+def test_shard_engine_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = TG.uniform(40, 3.0, seed=1).symmetrized()
+    pg = TPT.partition_graph(g, 2, pad_multiple=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardEngine(TA.bfs(), pg, tile_e=16, tile_r=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LocalMesh(2, "cuda")
+    res = ShardEngine(TA.bfs(), pg, mesh=LocalMesh(2, "cpu"), tile_e=16,
+                      tile_r=8).run()
     assert res.state["parent"][0] == 0 and np.all(res.state["parent"] >= -1)

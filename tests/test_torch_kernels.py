@@ -5,9 +5,12 @@ port's plain windowed combine (what its wrapper runs on a CPU tensor) is
 held against the Pallas kernel in interpret mode, and its
 ``scatter_reduce_`` oracle against the JAX oracle: exact, except float32
 add at rtol = atol = 1e-5 (the tolerance tests/test_kernels.py applies to
-Pallas vs. its oracle). The host-side copies (graph generators,
-partitioner, layout) must give field-identical arrays. The CUDA kernel
-itself is held against the plain version in tests/test_torch_cuda.py.
+Pallas vs. its oracle). The stacked combine's plain version (K2, the
+shard engine's) is held, shard by shard, against the JAX package's
+``segment_combine_windows`` in interpret mode. The host-side copies
+(graph generators, partitioner, layout) must give field-identical arrays.
+The CUDA kernels themselves are held against the plain versions in
+tests/test_torch_cuda.py.
 """
 import dataclasses
 
@@ -20,11 +23,13 @@ from repro.core import graph as JG
 from repro.core import partition as JPT
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.edge_gather import segment_combine_windows as jax_windows
 from repro.kernels.layout import build_layout as jax_build_layout
 from repro_torch.core import graph as TG
 from repro_torch.core import partition as TPT
 from repro_torch.kernels import edge_gather, ops, ref
-from repro_torch.kernels.layout import build_layout
+from repro_torch.kernels.layout import (StackedLayout, build_layout,
+                                       stack_layouts)
 
 # The tensors here are tiny: one CPU thread keeps torch's thread pool off
 # the cores that parallel test workers share.
@@ -226,3 +231,100 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         ops.segment_combine_layout(torch.zeros(2, lanes).t(), tl, "min")
 
+
+
+# Stacked per-shard layouts: (edges of each shard, segments, tile_e,
+# tile_r, skew). Each has an empty shard, and sparse shards leave windows
+# that own no tile; segment ids are drawn as n_segments * u**skew, so the
+# last stack has hub rows spanning many tiles.
+STACKS = [
+    ((300, 0, 45, 1), 130, 32, 16, 1),
+    ((0, 500, 30, 2000), 2000, 64, 32, 1),
+    ((2048, 700, 0, 64), 2000, 64, 64, 4),
+]
+
+
+def _stack(rng, sizes, n_segments, tile_e, tile_r, skew, dtype, batch):
+    """A stacked layout (numpy arrays) and random values in every lane,
+    padding lanes and the pad tiles of shorter shards included."""
+    layouts = [build_layout(
+        np.sort((n_segments + 1) * rng.random(n) ** skew).astype(np.int64),
+        n_segments, tile_e=tile_e, tile_r=tile_r) for n in sizes]
+    st, _, _ = stack_layouts(layouts)
+    assert not st["window_written"].all()  # some window owns no tile
+    shape = (batch, len(sizes), st["rel"].shape[1])
+    if np.issubdtype(dtype, np.floating):
+        vals = rng.standard_normal(shape).astype(dtype)
+    else:
+        vals = rng.integers(-1000, 1000, size=shape).astype(dtype)
+    return st, vals
+
+
+@pytest.mark.parametrize("combiner,dtype", COMBINER_DTYPES)
+@pytest.mark.parametrize("sizes,n_segments,tile_e,tile_r,skew", STACKS)
+def test_stacked_combine_matches_pallas_windows(combiner, dtype, sizes,
+                                                n_segments, tile_e, tile_r,
+                                                skew):
+    rng = np.random.default_rng(n_segments + tile_e)
+    st, vals = _stack(rng, sizes, n_segments, tile_e, tile_r, skew, dtype,
+                      3)
+    if skew > 1:  # a hub window
+        assert np.diff(st["tile_start"]).max() >= 8
+    layout = StackedLayout(torch.from_numpy(st["tile_start"]),
+                           torch.from_numpy(st["rel"]), tile_e, tile_r,
+                           n_segments)
+    launched = edge_gather.windows_launches
+    got = ops.segment_combine_stacked(torch.from_numpy(vals), layout,
+                                      combiner)
+    got1 = ops.segment_combine_stacked(torch.from_numpy(vals[0]), layout,
+                                       combiner)
+    assert edge_gather.windows_launches == launched  # CPU: the plain version
+    assert got.shape == vals.shape[:2] + (n_segments,)
+    _assert_match(got1, got[0], combiner, dtype)
+    n_windows = st["window_written"].shape[1]
+    for s in range(len(sizes)):
+        for b in range(vals.shape[0]):
+            want = jax_windows(
+                jnp.asarray(st["window_id"][s]), jnp.asarray(st["rel"][s]),
+                jnp.asarray(vals[b, s]), combiner=combiner, tile_e=tile_e,
+                tile_r=tile_r, n_windows=n_windows,
+                window_written=jnp.asarray(st["window_written"][s]),
+                num_segments=n_segments, interpret=True)
+            _assert_match(got[b, s], want, combiner, dtype)
+
+
+def test_stack_layouts_checks_unwritten_windows():
+    layouts = [build_layout(np.array([0, 0, 9]), 40, tile_e=16, tile_r=8),
+               build_layout(np.array([], np.int64), 40, tile_e=16, tile_r=8)]
+    st, n_tiles, n_windows = stack_layouts(layouts)
+    assert (n_tiles, n_windows) == (2, 6)
+    # the empty shard's one dummy tile points at window 0, as in JAX
+    np.testing.assert_array_equal(st["tile_start"][1], [0, 1, 1, 1, 1, 1, 1])
+    np.testing.assert_array_equal(st["window_id"][1], [0, 0])
+    bad = dataclasses.replace(
+        layouts[0], window_written=np.zeros(n_windows, bool))
+    with pytest.raises(ValueError, match="unwritten"):
+        stack_layouts([bad])
+    with pytest.raises(ValueError, match="tile shape"):
+        stack_layouts([layouts[0], build_layout(np.arange(3), 40, tile_e=16,
+                                                tile_r=16)])
+
+
+def test_stacked_wrapper_rejects_bad_inputs():
+    st, _, _ = stack_layouts([build_layout(np.arange(10), 10, tile_e=16,
+                                           tile_r=8)] * 2)
+    layout = StackedLayout(torch.from_numpy(st["tile_start"]),
+                           torch.from_numpy(st["rel"]), 16, 8, 10)
+    lanes = st["rel"].shape[1]
+    with pytest.raises(TypeError):
+        ops.segment_combine_stacked(torch.zeros(2, lanes, dtype=torch.int64),
+                                    layout, "min")
+    with pytest.raises(ValueError):
+        ops.segment_combine_stacked(torch.zeros(3, lanes), layout, "min")
+    with pytest.raises(ValueError):
+        ops.segment_combine_stacked(torch.zeros(2, lanes), layout, "mul")
+    with pytest.raises(ValueError):
+        ops.segment_combine_stacked(torch.zeros(lanes, 2).t(), layout, "min")
+    with pytest.raises(ValueError):
+        ops.segment_combine_stacked(torch.zeros(2, lanes),
+                                    layout._replace(num_segments=40), "min")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of GraVF-M on one NVIDIA card, and check it.
 
-    python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --kernels  # phases 1-4, 7-9 and 12 only
 
 Phases, in order; any failure exits non-zero:
   1. device : the card's name, the device count, nvidia-smi's name and
@@ -79,12 +80,19 @@ KERNEL2 = {
 EXCHANGES = ("allgather", "unicast", "combined")
 # Small stacks for K2's sweep: (edges of each shard, segments, tile_e,
 # tile_r): an empty shard, windows that own no tile, hub rows.
+# The last stack and the last shape put ~17,000 lanes of 32 in one window:
+# ~530 tiles, so the window is cut into many work items.
 SWEEP_STACKS = [((300, 0, 45, 1), 130, 32, 16),
                 ((0, 500, 30, 2000), 2000, 64, 32),
-                ((4096, 700, 0, 64), 64, 256, 256)]
+                ((4096, 700, 0, 64), 64, 256, 256),
+                ((20000, 0, 3000, 64), 300, 32, 256)]
 SWEEP_SHAPES = [(0, 16, 32, 16), (1, 1, 32, 16), (500, 64, 64, 32),
                 (500, 2000, 64, 32), (777, 130, 128, 64),
-                (2048, 64, 256, 256)]
+                (2048, 64, 256, 256), (20000, 300, 32, 256)]
+# Batch sizes of the sweeps: one query, a batch below QB (the queries a
+# block folds together, at most 8), the main path's batch, and one that
+# leaves a ragged last chunk.
+SWEEP_BATCHES = (1, 3, BATCH, 17)
 COMBINERS = ("add", "min", "max")
 # The main path's key combines: (combiner, dtype name, who calls it).
 TIMED = [("min", "int32", "BFS/WCC key, SSSP carry"),
@@ -255,7 +263,7 @@ def phase_sweep(torch, full_layout, device) -> float:
     for layout in layouts:
         for combiner in COMBINERS:
             for dtype in (torch.float32, torch.int32):
-                for batch in (1, BATCH):
+                for batch in SWEEP_BATCHES:
                     vals = lane_values(torch, layout, combiner, dtype,
                                        batch, gen)
                     if batch == 1:
@@ -436,8 +444,20 @@ def phase_timing(torch, layout, device):
     return records
 
 
-def drive(torch, device):
-    """Phases 3-12. Returns the kernels' records for the JSON line."""
+def window_spread(tag: str, tile_start) -> None:
+    """Tiles a (shard, window) owns, over a layout's windows: the spread
+    the work list's cut is chosen from."""
+    tiles = np.diff(tile_start.cpu().numpy().reshape(-1, tile_start.shape[-1]),
+                    axis=1).ravel()
+    p50, p90, p99 = np.percentile(tiles, [50, 90, 99])
+    log("layout", layout=tag, windows=tiles.size, tiles=int(tiles.sum()),
+        empty=int((tiles == 0).sum()), p50=p50, p90=p90, p99=p99,
+        max=int(tiles.max()))
+
+
+def drive(torch, device, full: bool = True):
+    """Phases 3-12 (``full=False``: only the host, sweep and timing
+    phases). Returns the kernels' records for the JSON line."""
     from repro_torch.core import algorithms as ALG
     from repro_torch.core.engine import Engine
 
@@ -461,16 +481,18 @@ def drive(torch, device):
     kernel_engine = engine(kernel_engines, "kernel")
     ref_engine = engine(ref_engines, "ref")
     layout = kernel_engine("bfs")._layout
+    window_spread("engine", layout.tile_start)
 
     max_err = phase_sweep(torch, layout, device)
 
     deg = g.out_degrees()
     rng = np.random.default_rng(GRAPH_SEED)
     roots = rng.choice(np.flatnonzero(deg > 0), size=BATCH, replace=False)
-    launches, engine_runs = phase_main(torch, g, pg, kernel_engine,
-                                       ref_engine, roots)
-
-    phase_profile(torch, kernel_engine, int(roots[0]))
+    launches, engine_runs = None, []
+    if full:
+        launches, engine_runs = phase_main(torch, g, pg, kernel_engine,
+                                           ref_engine, roots)
+        phase_profile(torch, kernel_engine, int(roots[0]))
     records = phase_timing(torch, layout, device)
     kernel_engines.clear()
     ref_engines.clear()
@@ -481,10 +503,10 @@ def drive(torch, device):
           "ms": head["ms"], "plain_ms": head["plain_ms"],
           "bound_ms": head["bound_ms"], "bound_by": "bytes",
           "library_ms": head["library_ms"], "variants": records}
-    return [k1, drive_shard(torch, device, g, pg, roots, engine_runs)]
+    return [k1, drive_shard(torch, device, g, pg, roots, engine_runs, full)]
 
 
-def drive_shard(torch, device, g, pg, roots, engine_runs):
+def drive_shard(torch, device, g, pg, roots, engine_runs, full=True):
     """Phases 8-12. Returns K2's record for the JSON line."""
     from repro_torch.core.engine_shardmap import build_shard_data
     t0 = time.perf_counter()
@@ -497,11 +519,16 @@ def drive_shard(torch, device, g, pg, roots, engine_runs):
     engine = shard_engines(torch, device, pg, data)
     stacks = {"csc": engine("allgather", "bfs", "kernel")._csc,
               "combined": engine("combined", "bfs", "kernel")._comb}
+    for name, stack in stacks.items():
+        window_spread(name, stack.tile_start)
     max_err = phase_sweep_stacked(torch, stacks, device)
-    launches = phase_shard(torch, device, g, engine, roots, engine_runs)
-    for exchange in EXCHANGES:
-        phase_profile(torch, lambda name: engine(exchange, name, "kernel"),
-                      int(roots[0]), exchange=exchange)
+    launches = None
+    if full:
+        launches = phase_shard(torch, device, g, engine, roots, engine_runs)
+        for exchange in EXCHANGES:
+            phase_profile(torch,
+                          lambda name: engine(exchange, name, "kernel"),
+                          int(roots[0]), exchange=exchange)
     records = phase_timing_stacked(torch, stacks, device)
     head = records[0]  # CSC int32 min at B=1: allgather's BFS/WCC key
     return {**KERNEL2, "launches": launches, "max_abs_err": max_err,
@@ -560,7 +587,7 @@ def phase_sweep_stacked(torch, full_stacks, device) -> float:
         full = any(layout is f for f in full_stacks.values())
         for combiner in COMBINERS:
             for dtype in (torch.float32, torch.int32):
-                for batch in (1, BATCH):
+                for batch in SWEEP_BATCHES:
                     vals = lane_values(torch, layout, combiner, dtype,
                                        batch, gen)
                     if batch == 1:
@@ -776,8 +803,11 @@ def main() -> int:
         nvidia_smi=repr(smi), torch=torch.__version__,
         cuda=torch.version.cuda)
     phase_build()
-    records = drive(torch, torch.device("cuda"))
+    full = "--kernels" not in sys.argv[1:]
+    records = drive(torch, torch.device("cuda"), full)
     print(json.dumps({"kernels": records}), flush=True)
+    if not full:
+        return 0
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -109,92 +109,160 @@ __device__ __forceinline__ void atomic_fold(T* addr, T v) {
 }
 
 // One block's whole job, shared by both kernels: fold the 16-byte lane
-// vectors [q_lo, q_hi) of one lane row (rel, vals) into tile_r shared
-// accumulators `acc`, then store them to out[row0 .. row0 + tile_r),
-// bounded by num_segments.
-template <typename T, int OP>
+// vectors [q_lo, q_hi) of one lane row (rel, vals) for nq <= QB queries
+// (query j's values at vals + j*vstride) into QB x tile_r shared
+// accumulators `acc`, then store them to out[j*ostride + row0 ..
+// row0 + tile_r), bounded by num_segments. rel is read once for all nq.
+template <typename T, int OP, int QB>
 __device__ __forceinline__ void fold_window(T* acc,
                                             const int* __restrict__ rel,
                                             const T* __restrict__ vals,
+                                            long long vstride,
                                             T* __restrict__ out,
+                                            long long ostride, int nq,
                                             long long q_lo, long long q_hi,
                                             long long row0,
                                             int num_segments, int tile_r) {
-  for (int r = threadIdx.x; r < tile_r; r += blockDim.x) acc[r] = identity<T, OP>();
+  for (int r = threadIdx.x; r < QB * tile_r; r += blockDim.x) acc[r] = identity<T, OP>();
   __syncthreads();
 
   using V4 = typename Vec4<T>::type;
   const int4* rel4 = reinterpret_cast<const int4*>(rel);
   const V4* vals4 = reinterpret_cast<const V4*>(vals);
-  // The thread's open run: row `cur` (tile_r = none) with partial `part`.
-  // It stays open across the thread's strided vectors, so a hub row that
-  // spans many tiles costs each thread one atomic, not one per vector.
+  const long long vstride4 = vstride / 4;
   int cur = tile_r;
-  T part = identity<T, OP>();
+  T part[QB];
+#pragma unroll
+  for (int j = 0; j < QB; ++j) part[j] = identity<T, OP>();
   for (long long q = q_lo + threadIdx.x; q < q_hi; q += blockDim.x) {
     const int4 r4 = __ldg(rel4 + q);
-    const V4 v4 = vals4[q];
-    const int rs[4] = {r4.x, r4.y, r4.z, r4.w};
-    const T vs[4] = {v4.x, v4.y, v4.z, v4.w};
+    T vs[QB][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (rs[j] == cur) {
-        part = combine<T, OP>(part, vs[j]);
+    for (int j = 0; j < QB; ++j) {
+      V4 v4{};
+      if (j < nq) v4 = vals4[j * vstride4 + q];
+      vs[j][0] = v4.x; vs[j][1] = v4.y; vs[j][2] = v4.z; vs[j][3] = v4.w;
+    }
+    const int rs[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (rs[k] == cur) {
+#pragma unroll
+        for (int j = 0; j < QB; ++j) part[j] = combine<T, OP>(part[j], vs[j][k]);
       } else {
-        if (cur < tile_r) atomic_fold<T, OP>(&acc[cur], part);
-        cur = rs[j];
-        part = vs[j];
+        if (cur < tile_r) {
+#pragma unroll
+          for (int j = 0; j < QB; ++j)
+            if (j < nq) atomic_fold<T, OP>(&acc[j * tile_r + cur], part[j]);
+        }
+        cur = rs[k];
+#pragma unroll
+        for (int j = 0; j < QB; ++j) part[j] = vs[j][k];
       }
     }
   }
-  if (cur < tile_r) atomic_fold<T, OP>(&acc[cur], part);
+  if (cur < tile_r) {
+#pragma unroll
+    for (int j = 0; j < QB; ++j)
+      if (j < nq) atomic_fold<T, OP>(&acc[j * tile_r + cur], part[j]);
+  }
   __syncthreads();
 
-  for (int r = threadIdx.x; r < tile_r; r += blockDim.x) {
+  for (int i = threadIdx.x; i < nq * tile_r; i += blockDim.x) {
+    const int j = i / tile_r, r = i - j * tile_r;
     const long long row = row0 + r;
-    if (row < num_segments) out[row] = acc[r];
+    if (row < num_segments) out[j * ostride + row] = acc[i];
   }
 }
 
-// K1: block (w, b) folds window w of the one layout for query b.
-template <typename T, int OP>
+// K1: block (w, c) folds window w of the one layout for the queries
+// [c*QB, min(B, (c+1)*QB)).
+template <typename T, int OP, int QB>
 __global__ void __launch_bounds__(kThreads)
 segment_combine_kernel(const int* __restrict__ tile_start,
                        const int* __restrict__ rel,
                        const T* __restrict__ vals, T* __restrict__ out,
-                       long long num_lanes, int num_segments, int tile_e,
-                       int tile_r) {
+                       int batch, long long num_lanes, int num_segments,
+                       int tile_e, int tile_r) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int w = blockIdx.x;
-  const long long b = blockIdx.y;
-  fold_window<T, OP>(reinterpret_cast<T*>(smem_raw), rel,
-                     vals + b * num_lanes, out + b * num_segments,
-                     (long long)tile_start[w] * tile_e / 4,
-                     (long long)tile_start[w + 1] * tile_e / 4,
-                     (long long)w * tile_r, num_segments, tile_r);
+  const long long b0 = (long long)blockIdx.y * QB;
+  const int nq = min((long long)QB, batch - b0);
+  fold_window<T, OP, QB>(reinterpret_cast<T*>(smem_raw), rel,
+                         vals + b0 * num_lanes, num_lanes,
+                         out + b0 * num_segments, num_segments, nq,
+                         (long long)tile_start[w] * tile_e / 4,
+                         (long long)tile_start[w + 1] * tile_e / 4,
+                         (long long)w * tile_r, num_segments, tile_r);
 }
 
-// K2: block (w, b * n_shards + s) folds window w of shard s's layout for
-// query b. Shard s reads its own tile_start row, so the tiles a shorter
-// shard was padded with (past its tile_start[s][n_windows]) are never read.
-template <typename T, int OP>
+// K2: block (w, c * n_shards + s) folds window w of shard s's layout for
+// the queries [c*QB, min(B, (c+1)*QB)). Shard s reads its own tile_start
+// row, so the tiles a shorter shard was padded with (past its
+// tile_start[s][n_windows]) are never read.
+template <typename T, int OP, int QB>
 __global__ void __launch_bounds__(kThreads)
 segment_combine_windows_kernel(const int* __restrict__ tile_start,
                                const int* __restrict__ rel,
                                const T* __restrict__ vals,
                                T* __restrict__ out, int n_windows,
-                               int n_shards, long long num_lanes,
+                               int n_shards, int batch, long long num_lanes,
                                int num_segments, int tile_e, int tile_r) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int w = blockIdx.x;
-  const long long bs = blockIdx.y;
-  const long long s = bs % n_shards;
+  const long long s = blockIdx.y % n_shards;
+  const long long b0 = (long long)(blockIdx.y / n_shards) * QB;
+  const int nq = min((long long)QB, batch - b0);
   const int* ts = tile_start + s * (n_windows + 1);
-  fold_window<T, OP>(reinterpret_cast<T*>(smem_raw), rel + s * num_lanes,
-                     vals + bs * num_lanes, out + bs * num_segments,
-                     (long long)ts[w] * tile_e / 4,
-                     (long long)ts[w + 1] * tile_e / 4,
-                     (long long)w * tile_r, num_segments, tile_r);
+  const long long first = b0 * n_shards + s;
+  fold_window<T, OP, QB>(reinterpret_cast<T*>(smem_raw), rel + s * num_lanes,
+                         vals + first * num_lanes, n_shards * num_lanes,
+                         out + first * num_segments,
+                         n_shards * (long long)num_segments, nq,
+                         (long long)ts[w] * tile_e / 4,
+                         (long long)ts[w + 1] * tile_e / 4,
+                         (long long)w * tile_r, num_segments, tile_r);
+}
+
+// The queries a block folds together: the least power of two >= batch,
+// at most 8.
+inline int pick_qb(int batch) { return batch >= 8 ? 8 : batch > 2 ? 4 : batch; }
+
+template <typename T, int OP, int QB>
+cudaError_t launch_qb(const int* tile_start, const int* rel, const void* vals,
+                      void* out, int n_windows, int n_shards, int batch,
+                      long long num_lanes, int num_segments, int tile_e,
+                      int tile_r, bool stacked, cudaStream_t stream) {
+  const dim3 grid(n_windows, (batch + QB - 1) / QB * n_shards);
+  const size_t smem = (size_t)QB * tile_r * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(segment_combine_kernel<T, OP, QB>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute(segment_combine_windows_kernel<T, OP, QB>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (stacked)
+    segment_combine_windows_kernel<T, OP, QB><<<grid, kThreads, smem, stream>>>(
+        tile_start, rel, static_cast<const T*>(vals), static_cast<T*>(out),
+        n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r);
+  else
+    segment_combine_kernel<T, OP, QB><<<grid, kThreads, smem, stream>>>(
+        tile_start, rel, static_cast<const T*>(vals), static_cast<T*>(out),
+        batch, num_lanes, num_segments, tile_e, tile_r);
+  return cudaGetLastError();
+}
+
+template <typename T, int OP>
+cudaError_t launch_any(const int* tile_start, const int* rel, const void* vals,
+                       void* out, int n_windows, int n_shards, int batch,
+                       long long num_lanes, int num_segments, int tile_e,
+                       int tile_r, bool stacked, cudaStream_t stream) {
+  switch (pick_qb(batch)) {
+    case 1: return launch_qb<T, OP, 1>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stacked, stream);
+    case 2: return launch_qb<T, OP, 2>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stacked, stream);
+    case 4: return launch_qb<T, OP, 4>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stacked, stream);
+    default: return launch_qb<T, OP, 8>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stacked, stream);
+  }
 }
 
 template <typename T, int OP>
@@ -202,12 +270,9 @@ cudaError_t launch(const int* tile_start, const int* rel, const void* vals,
                    void* out, int n_windows, int batch, long long num_lanes,
                    int num_segments, int tile_e, int tile_r,
                    cudaStream_t stream) {
-  const dim3 grid(n_windows, batch);
-  const size_t smem = (size_t)tile_r * sizeof(T);
-  segment_combine_kernel<T, OP><<<grid, kThreads, smem, stream>>>(
-      tile_start, rel, static_cast<const T*>(vals), static_cast<T*>(out),
-      num_lanes, num_segments, tile_e, tile_r);
-  return cudaGetLastError();
+  return launch_any<T, OP>(tile_start, rel, vals, out, n_windows, 1, batch,
+                           num_lanes, num_segments, tile_e, tile_r, false,
+                           stream);
 }
 
 template <typename T, int OP>
@@ -216,12 +281,9 @@ cudaError_t launch_windows(const int* tile_start, const int* rel,
                            int n_shards, int batch, long long num_lanes,
                            int num_segments, int tile_e, int tile_r,
                            cudaStream_t stream) {
-  const dim3 grid(n_windows, batch * n_shards);
-  const size_t smem = (size_t)tile_r * sizeof(T);
-  segment_combine_windows_kernel<T, OP><<<grid, kThreads, smem, stream>>>(
-      tile_start, rel, static_cast<const T*>(vals), static_cast<T*>(out),
-      n_windows, n_shards, num_lanes, num_segments, tile_e, tile_r);
-  return cudaGetLastError();
+  return launch_any<T, OP>(tile_start, rel, vals, out, n_windows, n_shards,
+                           batch, num_lanes, num_segments, tile_e, tile_r,
+                           true, stream);
 }
 
 }  // namespace

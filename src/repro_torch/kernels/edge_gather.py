@@ -43,6 +43,13 @@ windows_launches = 0
 
 _COMBINER_CODE = {"add": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
+# Dynamic shared memory a Hopper block may use.
+_SMEM_MAX = 232448
+
+
+def _qb(batch: int) -> int:
+    """Queries one block folds together (the kernel's pick_qb)."""
+    return 8 if batch >= 8 else 4 if batch > 2 else batch
 
 
 def segment_combine_plain(window_id: torch.Tensor, rel: torch.Tensor,
@@ -117,9 +124,9 @@ def _launch(tile_start, rel, vals, combiner, tile_e, tile_r, num_segments):
     batch = vals.numel() // lanes if lanes else 0
     if tile_e % 4:
         raise ValueError(f"tile_e must be a multiple of 4, got {tile_e}")
-    if tile_r * 4 > 48 * 1024:
-        raise ValueError(f"tile_r={tile_r} needs more than 48 KB of "
-                         "shared memory")
+    if _qb(batch) * tile_r * 4 > _SMEM_MAX:
+        raise ValueError(f"tile_r={tile_r} needs more shared memory than "
+                         "a block has")
     if batch > 65535:
         raise ValueError(f"batch {batch} exceeds the grid's 65535")
     out = torch.empty(vals.shape[:-1] + (num_segments,), dtype=vals.dtype,
@@ -227,9 +234,9 @@ def _launch_windows(tile_start, rel, vals, combiner, tile_e, tile_r,
     rows = vals.numel() // lanes if lanes else 0
     if tile_e % 4:
         raise ValueError(f"tile_e must be a multiple of 4, got {tile_e}")
-    if tile_r * 4 > 48 * 1024:
-        raise ValueError(f"tile_r={tile_r} needs more than 48 KB of "
-                         "shared memory")
+    if _qb(rows // n_shards) * tile_r * 4 > _SMEM_MAX:
+        raise ValueError(f"tile_r={tile_r} needs more shared memory than "
+                         "a block has")
     if rows > 65535:
         raise ValueError(f"batch x shards = {rows} exceeds the grid's 65535")
     out = torch.empty(vals.shape[:-1] + (num_segments,), dtype=vals.dtype,

@@ -108,6 +108,65 @@ __device__ __forceinline__ void atomic_fold(T* addr, T v) {
   }
 }
 
+// One warp's fold of 128 consecutive lanes (4 a thread, in lane order)
+// for nq <= QB queries into the shared accumulators acc[j*tile_r + row].
+// Lanes are sorted by row (padding and lanes past the range hold tile_r,
+// which matches no row), so a row's lanes are consecutive: each thread
+// folds its own 4 lanes, then a segmented inclusive scan over the warp
+// (__shfl_up_sync, keyed by each thread's last row) joins a row's lanes
+// across threads, and only the thread where a row ends issues the shared
+// atomic. A row costs one atomic a warp it touches, where a per-thread
+// fold cost one for each thread it touches.
+template <typename T, int OP, int QB>
+__device__ __forceinline__ void fold_warp(T* acc, const int (&k)[4],
+                                          T (&v)[QB][4], int nq,
+                                          int tile_r) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  // Query-independent: which neighbours share this thread's last row.
+  unsigned same = 0;
+#pragma unroll
+  for (int d = 1, bit = 0; d < 32; d <<= 1, ++bit) {
+    const int up = __shfl_up_sync(kAll, k[3], d);
+    if (lane >= d && up == k[3]) same |= 1u << bit;
+  }
+  const int prev_last = __shfl_up_sync(kAll, k[3], 1);
+  const int next_first = __shfl_down_sync(kAll, k[0], 1);
+  // The run of the last row ends here unless the next thread starts with
+  // it; the run of the first row (if it is not also the last) ends here
+  // and joins the previous thread's scan if that ended on the same row.
+  const bool emit_last = (lane == 31 || next_first != k[3]) && k[3] < tile_r;
+  const bool emit_first = k[0] != k[3] && k[0] < tile_r;
+  const bool join_first = lane > 0 && prev_last == k[0];
+  const bool emit_1 = k[1] != k[0] && k[1] != k[3];
+  const bool emit_2 = k[2] != k[1] && k[2] != k[3];
+  const T id = identity<T, OP>();
+#pragma unroll
+  for (int j = 0; j < QB; ++j) {
+    if (j >= nq) break;
+    T last = v[j][3];
+    last = combine<T, OP>(k[2] == k[3] ? v[j][2] : id, last);
+    last = combine<T, OP>(k[1] == k[3] ? v[j][1] : id, last);
+    last = combine<T, OP>(k[0] == k[3] ? v[j][0] : id, last);
+#pragma unroll
+    for (int d = 1, bit = 0; d < 32; d <<= 1, ++bit) {
+      const T up = __shfl_up_sync(kAll, last, d);
+      if (same & (1u << bit)) last = combine<T, OP>(up, last);
+    }
+    const T prev = __shfl_up_sync(kAll, last, 1);
+    T* a = acc + j * tile_r;
+    if (emit_first) {
+      T first = v[j][0];
+      first = combine<T, OP>(first, k[1] == k[0] ? v[j][1] : id);
+      first = combine<T, OP>(first, k[2] == k[0] ? v[j][2] : id);
+      atomic_fold<T, OP>(a + k[0], join_first ? combine<T, OP>(prev, first) : first);
+    }
+    if (emit_1) atomic_fold<T, OP>(a + k[1], combine<T, OP>(v[j][1], k[2] == k[1] ? v[j][2] : id));
+    if (emit_2) atomic_fold<T, OP>(a + k[2], v[j][2]);
+    if (emit_last) atomic_fold<T, OP>(a + k[3], last);
+  }
+}
+
 // One block's whole job, shared by both kernels: fold the 16-byte lane
 // vectors [q_lo, q_hi) of one lane row (rel, vals) for nq <= QB queries
 // (query j's values at vals + j*vstride) into QB x tile_r shared
@@ -130,41 +189,21 @@ __device__ __forceinline__ void fold_window(T* acc,
   const int4* rel4 = reinterpret_cast<const int4*>(rel);
   const V4* vals4 = reinterpret_cast<const V4*>(vals);
   const long long vstride4 = vstride / 4;
-  int cur = tile_r;
-  T part[QB];
-#pragma unroll
-  for (int j = 0; j < QB; ++j) part[j] = identity<T, OP>();
-  for (long long q = q_lo + threadIdx.x; q < q_hi; q += blockDim.x) {
-    const int4 r4 = __ldg(rel4 + q);
+  // Whole warps walk the range together (the scan needs every lane).
+  for (long long base = q_lo; base < q_hi; base += blockDim.x) {
+    const long long q = base + threadIdx.x;
+    const bool live = q < q_hi;
+    int4 r4 = make_int4(tile_r, tile_r, tile_r, tile_r);
+    if (live) r4 = __ldg(rel4 + q);
     T vs[QB][4];
 #pragma unroll
     for (int j = 0; j < QB; ++j) {
       V4 v4{};
-      if (j < nq) v4 = vals4[j * vstride4 + q];
+      if (live && j < nq) v4 = vals4[j * vstride4 + q];
       vs[j][0] = v4.x; vs[j][1] = v4.y; vs[j][2] = v4.z; vs[j][3] = v4.w;
     }
-    const int rs[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (rs[k] == cur) {
-#pragma unroll
-        for (int j = 0; j < QB; ++j) part[j] = combine<T, OP>(part[j], vs[j][k]);
-      } else {
-        if (cur < tile_r) {
-#pragma unroll
-          for (int j = 0; j < QB; ++j)
-            if (j < nq) atomic_fold<T, OP>(&acc[j * tile_r + cur], part[j]);
-        }
-        cur = rs[k];
-#pragma unroll
-        for (int j = 0; j < QB; ++j) part[j] = vs[j][k];
-      }
-    }
-  }
-  if (cur < tile_r) {
-#pragma unroll
-    for (int j = 0; j < QB; ++j)
-      if (j < nq) atomic_fold<T, OP>(&acc[j * tile_r + cur], part[j]);
+    const int ks[4] = {r4.x, r4.y, r4.z, r4.w};
+    fold_warp<T, OP, QB>(acc, ks, vs, nq, tile_r);
   }
   __syncthreads();
 

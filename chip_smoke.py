@@ -568,8 +568,8 @@ def shard_engines(torch, device, pg, data):
 def phase_sweep_stacked(torch, full_stacks, device) -> float:
     """K2 against its plain version on the card; phase 4's tolerances."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.layout import (StackedLayout, build_layout,
-                                            stack_layouts)
+    from repro_torch.kernels.layout import (build_layout, stack_layouts,
+                                            stacked_layout)
     rng = np.random.default_rng(1)
     gen = torch.Generator(device=device).manual_seed(2)
     stacks = []
@@ -577,7 +577,7 @@ def phase_sweep_stacked(torch, full_stacks, device) -> float:
         st, _, _ = stack_layouts([build_layout(
             np.sort(rng.integers(0, n_seg + 1, size=n)), n_seg,
             tile_e=tile_e, tile_r=tile_r) for n in sizes])
-        stacks.append(StackedLayout(
+        stacks.append(stacked_layout(
             torch.as_tensor(st["tile_start"], device=device),
             torch.as_tensor(st["rel"], device=device), tile_e, tile_r,
             n_seg))

@@ -38,7 +38,7 @@ import torch
 from ..convert import state_to_numpy
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from ..kernels.layout import StackedLayout, build_layout, stack_layouts
+from ..kernels.layout import build_layout, stack_layouts, stacked_layout
 from .engine import (HARD_SUPERSTEP_CAP, EngineResult, batch_size, collect,
                      query_tensors)
 from .gas import GasKernel
@@ -307,10 +307,10 @@ class ShardEngine:
         m = self.meta
         self._csc = self._comb = None
         if backend == "kernel" and exchange == "allgather":
-            self._csc = StackedLayout(self._data.tile_start, self._data.rel,
-                                      tile_e, tile_r, m.v_max + 1)
+            self._csc = stacked_layout(self._data.tile_start, self._data.rel,
+                                       tile_e, tile_r, m.v_max + 1)
         if backend == "kernel" and exchange == "combined":
-            self._comb = StackedLayout(
+            self._comb = stacked_layout(
                 self._data.comb_tile_start, self._data.comb_rel, tile_e,
                 tile_r, m.P * (m.comb_max + 1))
         # wire words a shard puts on the wire each superstep

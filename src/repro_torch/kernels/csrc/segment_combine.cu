@@ -167,222 +167,171 @@ __device__ __forceinline__ void fold_warp(T* acc, const int (&k)[4],
   }
 }
 
-// One block's whole job, shared by both kernels: fold the 16-byte lane
-// vectors [q_lo, q_hi) of one lane row (rel, vals) for nq <= QB queries
-// (query j's values at vals + j*vstride) into QB x tile_r shared
-// accumulators `acc`, then store them to out[j*ostride + row0 ..
-// row0 + tile_r), bounded by num_segments. rel is read once for all nq.
-template <typename T, int OP, int QB>
-__device__ __forceinline__ void fold_window(T* acc,
-                                            const int* __restrict__ rel,
-                                            const T* __restrict__ vals,
-                                            long long vstride,
-                                            T* __restrict__ out,
-                                            long long ostride, int nq,
-                                            long long q_lo, long long q_hi,
-                                            long long row0,
-                                            int num_segments, int tile_r) {
-  for (int r = threadIdx.x; r < QB * tile_r; r += blockDim.x) acc[r] = identity<T, OP>();
-  __syncthreads();
+// Item header: shard, window, tiles [lo, hi); for a window cut into
+// several items its arrival counter, this item's partial slot, the
+// window's first slot and its item count (kernels/layout.py:work_list).
+struct Item {
+  int shard, window, tile_lo, tile_hi, counter, slot, first_slot, parts;
+};
 
-  using V4 = typename Vec4<T>::type;
-  const int4* rel4 = reinterpret_cast<const int4*>(rel);
-  const V4* vals4 = reinterpret_cast<const V4*>(vals);
-  const long long vstride4 = vstride / 4;
-  // Whole warps walk the range together (the scan needs every lane).
-  for (long long base = q_lo; base < q_hi; base += blockDim.x) {
-    const long long q = base + threadIdx.x;
-    const bool live = q < q_hi;
-    int4 r4 = make_int4(tile_r, tile_r, tile_r, tile_r);
-    if (live) r4 = __ldg(rel4 + q);
-    T vs[QB][4];
-#pragma unroll
-    for (int j = 0; j < QB; ++j) {
-      V4 v4{};
-      if (live && j < nq) v4 = vals4[j * vstride4 + q];
-      vs[j][0] = v4.x; vs[j][1] = v4.y; vs[j][2] = v4.z; vs[j][3] = v4.w;
-    }
-    const int ks[4] = {r4.x, r4.y, r4.z, r4.w};
-    fold_warp<T, OP, QB>(acc, ks, vs, nq, tile_r);
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < nq * tile_r; i += blockDim.x) {
-    const int j = i / tile_r, r = i - j * tile_r;
-    const long long row = row0 + r;
-    if (row < num_segments) out[j * ostride + row] = acc[i];
-  }
+__device__ __forceinline__ Item load_item(const int* items, int i) {
+  const int4* p = reinterpret_cast<const int4*>(items) + 2 * (long long)i;
+  const int4 a = __ldg(p), b = __ldg(p + 1);
+  return Item{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
-// K1: block (w, c) folds window w of the one layout for the queries
-// [c*QB, min(B, (c+1)*QB)).
+// Block i folds work item i for every query, QB queries at a time: the
+// item's rel vectors are read once per chunk of QB queries. The item's
+// tile_r rows go to out, or, for a window cut into several items, to the
+// item's partial slot in `scratch` (slot, query, row); the last item of
+// such a window to arrive folds the window's slots in slot order, stores
+// the rows and sets the window's arrival counter back to 0.
 template <typename T, int OP, int QB>
 __global__ void __launch_bounds__(kThreads)
-segment_combine_kernel(const int* __restrict__ tile_start,
+segment_combine_kernel(const int* __restrict__ items,
+                       int* __restrict__ arrivals, T* __restrict__ scratch,
                        const int* __restrict__ rel,
                        const T* __restrict__ vals, T* __restrict__ out,
-                       int batch, long long num_lanes, int num_segments,
-                       int tile_e, int tile_r) {
+                       int n_shards, int batch, long long num_lanes,
+                       int num_segments, int tile_e, int tile_r) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int w = blockIdx.x;
-  const long long b0 = (long long)blockIdx.y * QB;
-  const int nq = min((long long)QB, batch - b0);
-  fold_window<T, OP, QB>(reinterpret_cast<T*>(smem_raw), rel,
-                         vals + b0 * num_lanes, num_lanes,
-                         out + b0 * num_segments, num_segments, nq,
-                         (long long)tile_start[w] * tile_e / 4,
-                         (long long)tile_start[w + 1] * tile_e / 4,
-                         (long long)w * tile_r, num_segments, tile_r);
-}
+  T* acc = reinterpret_cast<T*>(smem_raw);
+  __shared__ int last;
+  const Item it = load_item(items, blockIdx.x);
+  const long long q_lo = (long long)it.tile_lo * tile_e / 4;
+  const long long q_hi = (long long)it.tile_hi * tile_e / 4;
+  const long long row0 = (long long)it.window * tile_r;
+  using V4 = typename Vec4<T>::type;
+  const int4* rel4 = reinterpret_cast<const int4*>(rel + it.shard * num_lanes);
+  const long long vstride4 = n_shards * num_lanes / 4;
 
-// K2: block (w, c * n_shards + s) folds window w of shard s's layout for
-// the queries [c*QB, min(B, (c+1)*QB)). Shard s reads its own tile_start
-// row, so the tiles a shorter shard was padded with (past its
-// tile_start[s][n_windows]) are never read.
-template <typename T, int OP, int QB>
-__global__ void __launch_bounds__(kThreads)
-segment_combine_windows_kernel(const int* __restrict__ tile_start,
-                               const int* __restrict__ rel,
-                               const T* __restrict__ vals,
-                               T* __restrict__ out, int n_windows,
-                               int n_shards, int batch, long long num_lanes,
-                               int num_segments, int tile_e, int tile_r) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int w = blockIdx.x;
-  const long long s = blockIdx.y % n_shards;
-  const long long b0 = (long long)(blockIdx.y / n_shards) * QB;
-  const int nq = min((long long)QB, batch - b0);
-  const int* ts = tile_start + s * (n_windows + 1);
-  const long long first = b0 * n_shards + s;
-  fold_window<T, OP, QB>(reinterpret_cast<T*>(smem_raw), rel + s * num_lanes,
-                         vals + first * num_lanes, n_shards * num_lanes,
-                         out + first * num_segments,
-                         n_shards * (long long)num_segments, nq,
-                         (long long)ts[w] * tile_e / 4,
-                         (long long)ts[w + 1] * tile_e / 4,
-                         (long long)w * tile_r, num_segments, tile_r);
+  for (int b0 = 0; b0 < batch; b0 += QB) {
+    const int nq = min(QB, batch - b0);
+    for (int i = threadIdx.x; i < QB * tile_r; i += blockDim.x) acc[i] = identity<T, OP>();
+    __syncthreads();
+    const V4* vals4 = reinterpret_cast<const V4*>(vals) +
+                      ((long long)b0 * n_shards + it.shard) * num_lanes / 4;
+    // Whole warps walk the range together (the scan needs every lane).
+    for (long long base = q_lo; base < q_hi; base += blockDim.x) {
+      const long long q = base + threadIdx.x;
+      const bool live = q < q_hi;
+      int4 r4 = make_int4(tile_r, tile_r, tile_r, tile_r);
+      if (live) r4 = __ldg(rel4 + q);
+      T vs[QB][4];
+#pragma unroll
+      for (int j = 0; j < QB; ++j) {
+        V4 v4{};
+        if (live && j < nq) v4 = vals4[j * vstride4 + q];
+        vs[j][0] = v4.x; vs[j][1] = v4.y; vs[j][2] = v4.z; vs[j][3] = v4.w;
+      }
+      const int ks[4] = {r4.x, r4.y, r4.z, r4.w};
+      fold_warp<T, OP, QB>(acc, ks, vs, nq, tile_r);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nq * tile_r; i += blockDim.x) {
+      const int j = i / tile_r, r = i - j * tile_r;
+      const long long b = b0 + j;
+      if (it.parts > 1) {
+        scratch[((long long)it.slot * batch + b) * tile_r + r] = acc[i];
+      } else if (row0 + r < num_segments) {
+        out[(b * n_shards + it.shard) * num_segments + row0 + r] = acc[i];
+      }
+    }
+    __syncthreads();
+  }
+  if (it.parts == 1) return;
+
+  // Publish this item's partials, then count it in; the last to arrive
+  // folds the window.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(arrivals + it.counter, 1) == it.parts - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (long long i = threadIdx.x; i < (long long)batch * tile_r; i += blockDim.x) {
+    const long long b = i / tile_r;
+    const int r = (int)(i - b * tile_r);
+    if (row0 + r >= num_segments) continue;
+    const T* p = scratch + ((long long)it.first_slot * batch + b) * tile_r + r;
+    T v = __ldcg(p);
+    for (int k = 1; k < it.parts; ++k) v = combine<T, OP>(v, __ldcg(p + (long long)k * batch * tile_r));
+    out[(b * n_shards + it.shard) * num_segments + row0 + r] = v;
+  }
+  if (threadIdx.x == 0) arrivals[it.counter] = 0;
 }
 
 // The queries a block folds together: the least power of two >= batch,
 // at most 8.
 inline int pick_qb(int batch) { return batch >= 8 ? 8 : batch > 2 ? 4 : batch; }
 
+constexpr size_t kSmemMax = 232448;  // a Hopper block's dynamic shared memory
+
 template <typename T, int OP, int QB>
-cudaError_t launch_qb(const int* tile_start, const int* rel, const void* vals,
-                      void* out, int n_windows, int n_shards, int batch,
-                      long long num_lanes, int num_segments, int tile_e,
-                      int tile_r, bool stacked, cudaStream_t stream) {
-  const dim3 grid(n_windows, (batch + QB - 1) / QB * n_shards);
+cudaError_t launch(const int* items, int n_items, int* arrivals,
+                   void* scratch, const int* rel, const void* vals, void* out,
+                   int n_shards, int batch, long long num_lanes,
+                   int num_segments, int tile_e, int tile_r,
+                   cudaStream_t stream) {
   const size_t smem = (size_t)QB * tile_r * sizeof(T);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(segment_combine_kernel<T, OP, QB>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    cudaFuncSetAttribute(segment_combine_windows_kernel<T, OP, QB>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        segment_combine_kernel<T, OP, QB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
-  if (stacked)
-    segment_combine_windows_kernel<T, OP, QB><<<grid, kThreads, smem, stream>>>(
-        tile_start, rel, static_cast<const T*>(vals), static_cast<T*>(out),
-        n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r);
-  else
-    segment_combine_kernel<T, OP, QB><<<grid, kThreads, smem, stream>>>(
-        tile_start, rel, static_cast<const T*>(vals), static_cast<T*>(out),
-        batch, num_lanes, num_segments, tile_e, tile_r);
+  segment_combine_kernel<T, OP, QB><<<n_items, kThreads, smem, stream>>>(
+      items, arrivals, static_cast<T*>(scratch), rel,
+      static_cast<const T*>(vals), static_cast<T*>(out), n_shards, batch,
+      num_lanes, num_segments, tile_e, tile_r);
   return cudaGetLastError();
 }
 
 template <typename T, int OP>
-cudaError_t launch_any(const int* tile_start, const int* rel, const void* vals,
-                       void* out, int n_windows, int n_shards, int batch,
-                       long long num_lanes, int num_segments, int tile_e,
-                       int tile_r, bool stacked, cudaStream_t stream) {
+cudaError_t launch_any(const int* items, int n_items, int* arrivals,
+                       void* scratch, const int* rel, const void* vals,
+                       void* out, int n_shards, int batch, long long num_lanes,
+                       int num_segments, int tile_e, int tile_r,
+                       cudaStream_t stream) {
   switch (pick_qb(batch)) {
-    case 1: return launch_qb<T, OP, 1>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stacked, stream);
-    case 2: return launch_qb<T, OP, 2>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stacked, stream);
-    case 4: return launch_qb<T, OP, 4>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stacked, stream);
-    default: return launch_qb<T, OP, 8>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stacked, stream);
+    case 1: return launch<T, OP, 1>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stream);
+    case 2: return launch<T, OP, 2>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stream);
+    case 4: return launch<T, OP, 4>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stream);
+    default: return launch<T, OP, 8>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, stream);
   }
-}
-
-template <typename T, int OP>
-cudaError_t launch(const int* tile_start, const int* rel, const void* vals,
-                   void* out, int n_windows, int batch, long long num_lanes,
-                   int num_segments, int tile_e, int tile_r,
-                   cudaStream_t stream) {
-  return launch_any<T, OP>(tile_start, rel, vals, out, n_windows, 1, batch,
-                           num_lanes, num_segments, tile_e, tile_r, false,
-                           stream);
-}
-
-template <typename T, int OP>
-cudaError_t launch_windows(const int* tile_start, const int* rel,
-                           const void* vals, void* out, int n_windows,
-                           int n_shards, int batch, long long num_lanes,
-                           int num_segments, int tile_e, int tile_r,
-                           cudaStream_t stream) {
-  return launch_any<T, OP>(tile_start, rel, vals, out, n_windows, n_shards,
-                           batch, num_lanes, num_segments, tile_e, tile_r,
-                           true, stream);
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. vals is (batch, num_lanes) and out is
-// (batch, num_segments), both contiguous; num_lanes = tile_start[n_windows]
-// * tile_e; tile_e is a multiple of 4 and every pointer 16-byte aligned.
-// Launches on `stream`, does not synchronise, returns the cudaError_t of
-// the launch (0 = cudaSuccess).
-extern "C" int gravfm_segment_combine(const int* tile_start, const int* rel,
-                                      const void* vals, void* out,
-                                      int n_windows, int batch,
-                                      long long num_lanes, int num_segments,
-                                      int tile_e, int tile_r, int combiner,
-                                      int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int key = dtype * 3 + combiner;
-  switch (key) {
-    case kFloat32 * 3 + kAdd:
-      return launch<float, kAdd>(tile_start, rel, vals, out, n_windows, batch, num_lanes, num_segments, tile_e, tile_r, s);
-    case kFloat32 * 3 + kMin:
-      return launch<float, kMin>(tile_start, rel, vals, out, n_windows, batch, num_lanes, num_segments, tile_e, tile_r, s);
-    case kFloat32 * 3 + kMax:
-      return launch<float, kMax>(tile_start, rel, vals, out, n_windows, batch, num_lanes, num_segments, tile_e, tile_r, s);
-    case kInt32 * 3 + kAdd:
-      return launch<int, kAdd>(tile_start, rel, vals, out, n_windows, batch, num_lanes, num_segments, tile_e, tile_r, s);
-    case kInt32 * 3 + kMin:
-      return launch<int, kMin>(tile_start, rel, vals, out, n_windows, batch, num_lanes, num_segments, tile_e, tile_r, s);
-    case kInt32 * 3 + kMax:
-      return launch<int, kMax>(tile_start, rel, vals, out, n_windows, batch, num_lanes, num_segments, tile_e, tile_r, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// C entry point of K2, bound with ctypes. tile_start is (n_shards,
-// n_windows + 1), rel is (n_shards, num_lanes), vals is (batch, n_shards,
-// num_lanes) and out is (batch, n_shards, num_segments), all contiguous;
-// tile_start[s][n_windows] * tile_e <= num_lanes for every shard s. The
-// other conditions are K1's. Launches on `stream`, does not synchronise,
-// returns the cudaError_t of the launch (0 = cudaSuccess).
+// C entry point, bound with ctypes; both wrappers launch it (K1 with one
+// shard). items is the layout's work list ((n_items, 8) int32,
+// kernels/layout.py:work_list) and arrivals its counters (0 between
+// calls); scratch holds (slots, batch, tile_r) values of the split
+// windows' partials. rel is (n_shards, num_lanes), vals (batch, n_shards,
+// num_lanes), out (batch, n_shards, num_segments), all contiguous; tile_e
+// is a multiple of 4 and every pointer 16-byte aligned. Launches on
+// `stream`, does not synchronise, returns the cudaError_t of the launch
+// (0 = cudaSuccess).
 extern "C" int gravfm_segment_combine_windows(
-    const int* tile_start, const int* rel, const void* vals, void* out,
-    int n_windows, int n_shards, int batch, long long num_lanes,
-    int num_segments, int tile_e, int tile_r, int combiner, int dtype,
-    void* stream) {
+    const int* items, int n_items, int* arrivals, void* scratch,
+    const int* rel, const void* vals, void* out, int n_shards, int batch,
+    long long num_lanes, int num_segments, int tile_e, int tile_r,
+    int combiner, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype * 3 + combiner) {
     case kFloat32 * 3 + kAdd:
-      return launch_windows<float, kAdd>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+      return launch_any<float, kAdd>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
     case kFloat32 * 3 + kMin:
-      return launch_windows<float, kMin>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+      return launch_any<float, kMin>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
     case kFloat32 * 3 + kMax:
-      return launch_windows<float, kMax>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+      return launch_any<float, kMax>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
     case kInt32 * 3 + kAdd:
-      return launch_windows<int, kAdd>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+      return launch_any<int, kAdd>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
     case kInt32 * 3 + kMin:
-      return launch_windows<int, kMin>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+      return launch_any<int, kMin>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
     case kInt32 * 3 + kMax:
-      return launch_windows<int, kMax>(tile_start, rel, vals, out, n_windows, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
+      return launch_any<int, kMax>(items, n_items, arrivals, scratch, rel, vals, out, n_shards, batch, num_lanes, num_segments, tile_e, tile_r, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,15 +12,17 @@ own no tile hold the identity, and the result is cut to ``num_segments``.
 :func:`segment_combine` (K1) is the wrapper the engine calls. On a CUDA
 tensor it launches the hand-written Hopper kernel
 (``csrc/segment_combine.cu``; its note gives the design and the bound)
-and counts the launch in :data:`launches`; on a CPU tensor it runs
-:func:`segment_combine_plain`, the plain PyTorch version of the same
-function. There is no fallback from one to the other.
+over the layout's work list (``work``, :class:`~repro_torch.kernels.
+layout.WorkList`) and counts the launch in :data:`launches`; on a CPU
+tensor it runs :func:`segment_combine_plain`, the plain PyTorch version
+of the same function. There is no fallback from one to the other, and no
+kernel launch without a work list.
 
 :func:`segment_combine_windows` (K2) is the same function over a stack of
 per-shard layouts (the shard engine's ``segment_combine_windows`` calls),
-in one launch: the second entry of the same CUDA source, counted in
-:data:`windows_launches`, with :func:`segment_combine_windows_plain`
-beside it.
+in one launch of the same kernel, counted in :data:`windows_launches`,
+with :func:`segment_combine_windows_plain` beside it. K1 launches it as a
+stack of one shard.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import functools
 import torch
 
 from . import _build, ref
+from .layout import WorkList
 from .ref import identity_for
 
 __all__ = ["identity_for", "launches", "segment_combine",
@@ -64,17 +67,6 @@ def segment_combine_plain(window_id: torch.Tensor, rel: torch.Tensor,
     return ref.segment_combine(vals, row, num_segments, combiner)
 
 
-@functools.cache
-def _kernel():
-    fn = _build.load("segment_combine").gravfm_segment_combine
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(window_id, tile_start, rel, vals, combiner, tile_e, tile_r,
            num_segments) -> None:
     if combiner not in _COMBINER_CODE:
@@ -101,11 +93,13 @@ def _check(window_id, tile_start, rel, vals, combiner, tile_e, tile_r,
 
 def segment_combine(window_id: torch.Tensor, tile_start: torch.Tensor,
                     rel: torch.Tensor, vals: torch.Tensor, *, combiner: str,
-                    tile_e: int, tile_r: int,
-                    num_segments: int) -> torch.Tensor:
+                    tile_e: int, tile_r: int, num_segments: int,
+                    work: WorkList | None = None) -> torch.Tensor:
     """Windowed combine of ``vals`` ((lanes,) or (B, lanes)) over the
     layout ``(window_id, tile_start, rel)``; returns ``vals.shape[:-1] +
-    (num_segments,)``."""
+    (num_segments,)``. ``work`` is the layout's work list, which the
+    kernel path needs."""
+    global launches
     _check(window_id, tile_start, rel, vals, combiner, tile_e, tile_r,
            num_segments)
     if vals.device.type == "cpu":
@@ -114,39 +108,10 @@ def segment_combine(window_id: torch.Tensor, tile_start: torch.Tensor,
                                      num_segments=num_segments)
     if vals.device.type != "cuda":
         raise ValueError(f"no segment_combine for device {vals.device}")
-    return _launch(tile_start, rel, vals, combiner, tile_e, tile_r,
-                   num_segments)
-
-
-def _launch(tile_start, rel, vals, combiner, tile_e, tile_r, num_segments):
-    global launches
-    lanes = rel.numel()
-    batch = vals.numel() // lanes if lanes else 0
-    if tile_e % 4:
-        raise ValueError(f"tile_e must be a multiple of 4, got {tile_e}")
-    if _qb(batch) * tile_r * 4 > _SMEM_MAX:
-        raise ValueError(f"tile_r={tile_r} needs more shared memory than "
-                         "a block has")
-    if batch > 65535:
-        raise ValueError(f"batch {batch} exceeds the grid's 65535")
-    out = torch.empty(vals.shape[:-1] + (num_segments,), dtype=vals.dtype,
-                      device=vals.device)
-    if batch == 0 or num_segments == 0:
-        return out
-    if rel.data_ptr() % 16 or vals.data_ptr() % 16:
-        raise ValueError("rel and vals must be 16-byte aligned")
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(tile_start.data_ptr(), rel.data_ptr(),
-                        vals.data_ptr(), out.data_ptr(),
-                        tile_start.numel() - 1, batch, lanes, num_segments,
-                        tile_e, tile_r, _COMBINER_CODE[combiner],
-                        _DTYPE_CODE[vals.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"segment_combine kernel launch failed: "
-                           f"cudaError {err}")
-    launches += 1
-    return out
+    out, launched = _launch(work, rel.view(1, -1), vals.unsqueeze(-2),
+                            combiner, tile_e, tile_r, num_segments)
+    launches += launched
+    return out.squeeze(-2)
 
 
 def segment_combine_windows_plain(tile_start: torch.Tensor, rel: torch.Tensor,
@@ -172,11 +137,11 @@ def segment_combine_windows_plain(tile_start: torch.Tensor, rel: torch.Tensor,
 
 
 @functools.cache
-def _windows_kernel():
+def _kernel():
     fn = _build.load("segment_combine").gravfm_segment_combine_windows
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.c_longlong,
-                   i32, i32, i32, i32, i32, ptr]
+    fn.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                   ctypes.c_longlong, i32, i32, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -209,11 +174,13 @@ def _check_windows(tile_start, rel, vals, combiner, tile_e, tile_r,
 
 def segment_combine_windows(tile_start: torch.Tensor, rel: torch.Tensor,
                             vals: torch.Tensor, *, combiner: str,
-                            tile_e: int, tile_r: int,
-                            num_segments: int) -> torch.Tensor:
+                            tile_e: int, tile_r: int, num_segments: int,
+                            work: WorkList | None = None) -> torch.Tensor:
     """Windowed combine of ``vals`` ((S, lanes) or (B, S, lanes)) over S
     stacked layouts ``(tile_start (S, n_windows+1), rel (S, lanes))``;
-    returns ``vals.shape[:-1] + (num_segments,)``."""
+    returns ``vals.shape[:-1] + (num_segments,)``. ``work`` is the
+    stack's work list, which the kernel path needs."""
+    global windows_launches
     _check_windows(tile_start, rel, vals, combiner, tile_e, tile_r,
                    num_segments)
     if vals.device.type == "cpu":
@@ -223,37 +190,50 @@ def segment_combine_windows(tile_start: torch.Tensor, rel: torch.Tensor,
     if vals.device.type != "cuda":
         raise ValueError(f"no segment_combine_windows for device "
                          f"{vals.device}")
-    return _launch_windows(tile_start, rel, vals, combiner, tile_e, tile_r,
-                           num_segments)
+    out, launched = _launch(work, rel, vals, combiner, tile_e, tile_r,
+                            num_segments)
+    windows_launches += launched
+    return out
 
 
-def _launch_windows(tile_start, rel, vals, combiner, tile_e, tile_r,
-                    num_segments):
-    global windows_launches
+def _launch(work, rel, vals, combiner, tile_e, tile_r, num_segments):
+    """Launch the kernel over ``rel`` (S, lanes) and ``vals`` (..., S,
+    lanes). Returns the (..., S, num_segments) output and whether the
+    kernel was launched (not for an empty batch or no segment)."""
+    if not isinstance(work, WorkList):
+        raise ValueError("the CUDA combine needs the layout's work list "
+                         "(DeviceLayout.work / layout.stacked_layout)")
+    items = work.items
+    if (items.dtype != torch.int32 or items.dim() != 2
+            or items.shape[1] != 8 or not items.is_contiguous()
+            or items.device != vals.device
+            or work.arrivals.device != vals.device):
+        raise ValueError("work.items must be a contiguous (n, 8) int32 "
+                         "tensor on the values' device")
     n_shards, lanes = rel.shape
-    rows = vals.numel() // lanes if lanes else 0
+    batch = vals.numel() // (n_shards * lanes) if lanes else 0
     if tile_e % 4:
         raise ValueError(f"tile_e must be a multiple of 4, got {tile_e}")
-    if _qb(rows // n_shards) * tile_r * 4 > _SMEM_MAX:
+    if _qb(batch) * tile_r * 4 > _SMEM_MAX:
         raise ValueError(f"tile_r={tile_r} needs more shared memory than "
                          "a block has")
-    if rows > 65535:
-        raise ValueError(f"batch x shards = {rows} exceeds the grid's 65535")
     out = torch.empty(vals.shape[:-1] + (num_segments,), dtype=vals.dtype,
                       device=vals.device)
-    if rows == 0 or num_segments == 0:
-        return out
+    if batch == 0 or num_segments == 0:
+        return out, False
     if rel.data_ptr() % 16 or vals.data_ptr() % 16:
         raise ValueError("rel and vals must be 16-byte aligned")
+    scratch = torch.empty((work.n_slots, batch, tile_r), dtype=vals.dtype,
+                          device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _windows_kernel()(
-            tile_start.data_ptr(), rel.data_ptr(), vals.data_ptr(),
-            out.data_ptr(), tile_start.shape[1] - 1, n_shards,
-            rows // n_shards, lanes, num_segments, tile_e, tile_r,
-            _COMBINER_CODE[combiner], _DTYPE_CODE[vals.dtype], stream)
+        err = _kernel()(
+            items.data_ptr(), items.shape[0], work.arrivals.data_ptr(),
+            scratch.data_ptr(), rel.data_ptr(), vals.data_ptr(),
+            out.data_ptr(), n_shards, batch, lanes, num_segments, tile_e,
+            tile_r, _COMBINER_CODE[combiner], _DTYPE_CODE[vals.dtype],
+            stream)
     if err != 0:
-        raise RuntimeError(f"segment_combine_windows kernel launch failed: "
+        raise RuntimeError(f"segment_combine kernel launch failed: "
                            f"cudaError {err}")
-    windows_launches += 1
-    return out
+    return out, True

@@ -1,8 +1,9 @@
 """Static edge-tile layout for the segment-combine kernel.
 
 The port's own copy of ``repro.kernels.layout`` (same arrays for the same
-inputs), plus ``tile_start``: the per-window tile range the CUDA grid
-walks (block ``w`` owns tiles ``[tile_start[w], tile_start[w+1])``).
+inputs), plus ``tile_start``: the per-window tile range (window ``w`` owns
+tiles ``[tile_start[w], tile_start[w+1])``), and the CUDA kernel's work
+list (:func:`work_list`), built from it.
 
 Built once per partitioned graph (host-side numpy), like the paper's
 load-time edge-list preparation. Guarantees:
@@ -14,18 +15,34 @@ load-time edge-list preparation. Guarantees:
 
 :func:`stack_layouts` stacks per-shard layouts of one segment count onto
 a leading shard axis (the shard engine's layout); :class:`StackedLayout`
-is what the stacked combine reads on the device.
+is what the stacked combine reads on the device (:func:`stacked_layout`
+builds one with its work list).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["EdgeLayout", "DeviceLayout", "StackedLayout", "build_layout",
-           "stack_layouts"]
+__all__ = ["EdgeLayout", "DeviceLayout", "StackedLayout", "WorkList",
+           "WORK_TILES", "build_layout", "stack_layouts", "stacked_layout",
+           "work_list"]
+
+# Most tiles one work item of the CUDA combine folds. At rmat20 a window
+# owns a median of 13 tiles (p90 24, p99 43, max 143: chip_smoke.py's
+# [layout] lines), so 32 cuts only the tail of hub windows (~1 % of the
+# windows pay for a partial store and a fold of the partials), and no
+# item exceeds a small share of what each block of the grid folds.
+WORK_TILES = 32
+
+
+class WorkList(NamedTuple):
+    """The CUDA combine's work list on the device (see :func:`work_list`)."""
+    items: torch.Tensor     # (n_items, 8) int32
+    arrivals: torch.Tensor  # (split windows,) int32, 0 between calls
+    n_slots: int            # items of split windows (partial slots)
 
 
 class DeviceLayout(NamedTuple):
@@ -37,6 +54,7 @@ class DeviceLayout(NamedTuple):
     tile_e: int
     tile_r: int
     num_segments: int
+    work: Optional[WorkList] = None
 
 
 class StackedLayout(NamedTuple):
@@ -48,6 +66,60 @@ class StackedLayout(NamedTuple):
     tile_e: int
     tile_r: int
     num_segments: int
+    work: Optional[WorkList] = None
+
+
+def work_list(tile_start: np.ndarray,
+              max_tiles: int = WORK_TILES) -> np.ndarray:
+    """The CUDA combine's work items over ``tile_start`` ((n_windows+1,) or
+    (S, n_windows+1)): each (shard, window)'s tile range cut into
+    ``ceil(tiles / max_tiles)`` near-equal items of at most ``max_tiles``
+    tiles. A window that owns no tile is one empty item, so it is still
+    written (with the identity).
+
+    Returns (n_items, 8) int32, sorted by tiles, most first (the order the
+    grid walks them). Columns: shard, window, first tile, end tile; then,
+    for a window cut into several items, its arrival counter, the item's
+    partial slot, the window's first slot and its item count (the counter
+    and both slots are -1, the count 1, for a window that is one item).
+    A split window's slots are consecutive."""
+    ts = np.asarray(tile_start, np.int64)
+    ts = ts.reshape(-1, ts.shape[-1])
+    n_shards, n_windows = ts.shape[0], ts.shape[1] - 1
+    lo, hi = ts[:, :-1].ravel(), ts[:, 1:].ravel()
+    tiles = hi - lo
+    parts = np.maximum(1, -(-tiles // max_tiles))
+    win = np.repeat(np.arange(lo.size), parts)  # (shard, window) per item
+    part = np.arange(win.size) - (np.cumsum(parts) - parts)[win]
+    k = parts[win]
+    t_lo = lo[win] + part * tiles[win] // k
+    t_hi = lo[win] + (part + 1) * tiles[win] // k
+    split = parts > 1
+    counter = np.full(lo.size, -1)
+    counter[split] = np.arange(int(split.sum()))
+    first_slot = np.full(lo.size, -1)
+    first_slot[split] = np.cumsum(parts[split]) - parts[split]
+    slot = np.where(split[win], first_slot[win] + part, -1)
+    items = np.stack([win // n_windows, win % n_windows, t_lo, t_hi,
+                      counter[win], slot, first_slot[win], k], axis=1)
+    order = np.argsort(-(t_hi - t_lo), kind="stable")
+    return np.ascontiguousarray(items[order], dtype=np.int32)
+
+
+def _work(tile_start: np.ndarray, device) -> WorkList:
+    items = work_list(tile_start)
+    n_split = int(items[:, 4].max()) + 1
+    return WorkList(torch.as_tensor(items, device=device),
+                    torch.zeros(n_split, dtype=torch.int32, device=device),
+                    int((items[:, 5] >= 0).sum()))
+
+
+def stacked_layout(tile_start: torch.Tensor, rel: torch.Tensor, tile_e: int,
+                   tile_r: int, num_segments: int) -> StackedLayout:
+    """A :class:`StackedLayout` over the device tensors ``tile_start`` and
+    ``rel``, with its work list (built on the host from ``tile_start``)."""
+    return StackedLayout(tile_start, rel, tile_e, tile_r, num_segments,
+                         _work(tile_start.cpu().numpy(), rel.device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +151,8 @@ class EdgeLayout:
             return torch.as_tensor(a, dtype=torch.int32, device=device)
         return DeviceLayout(t(self.window_id), t(self.tile_start),
                             t(self.rel), self.tile_e, self.tile_r,
-                            self.num_segments)
+                            self.num_segments,
+                            _work(self.tile_start, device))
 
 
 def build_layout(seg_ids: np.ndarray, num_segments: int, *,

@@ -12,12 +12,13 @@ from __future__ import annotations
 import torch
 
 from . import edge_gather, ref
-from .layout import DeviceLayout, EdgeLayout, StackedLayout, build_layout
+from .layout import (DeviceLayout, EdgeLayout, StackedLayout, build_layout,
+                     stacked_layout)
 from .ref import identity_for
 
 __all__ = ["segment_combine", "segment_combine_layout",
-           "segment_combine_stacked", "build_layout", "EdgeLayout",
-           "DeviceLayout", "StackedLayout", "identity_for"]
+           "segment_combine_stacked", "build_layout", "stacked_layout",
+           "EdgeLayout", "DeviceLayout", "StackedLayout", "identity_for"]
 
 
 def segment_combine_layout(vals_padded: torch.Tensor, layout: DeviceLayout,
@@ -27,7 +28,7 @@ def segment_combine_layout(vals_padded: torch.Tensor, layout: DeviceLayout,
     return edge_gather.segment_combine(
         layout.window_id, layout.tile_start, layout.rel, vals_padded,
         combiner=combiner, tile_e=layout.tile_e, tile_r=layout.tile_r,
-        num_segments=layout.num_segments)
+        num_segments=layout.num_segments, work=layout.work)
 
 
 def segment_combine_stacked(vals: torch.Tensor, layout: StackedLayout,
@@ -38,7 +39,7 @@ def segment_combine_stacked(vals: torch.Tensor, layout: StackedLayout,
     return edge_gather.segment_combine_windows(
         layout.tile_start, layout.rel, vals, combiner=combiner,
         tile_e=layout.tile_e, tile_r=layout.tile_r,
-        num_segments=layout.num_segments)
+        num_segments=layout.num_segments, work=layout.work)
 
 
 def segment_combine(vals: torch.Tensor, seg_ids: torch.Tensor,

@@ -18,7 +18,7 @@ from repro_torch.core.engine_shardmap import ShardEngine
 from repro_torch.core.mesh import LocalMesh
 from repro_torch.kernels import edge_gather, ops
 from repro_torch.kernels.layout import (StackedLayout, build_layout,
-                                       stack_layouts)
+                                       stack_layouts, stacked_layout)
 
 # The tensors here are tiny: one CPU thread keeps torch's thread pool off
 # the cores that parallel test workers share.
@@ -117,9 +117,9 @@ def test_cuda_stacked_kernel_matches_plain(combiner, dtype):
             want = ops.segment_combine_stacked(vals, layout, combiner)
             before = edge_gather.windows_launches
             got = ops.segment_combine_stacked(
-                vals.cuda(), StackedLayout(layout.tile_start.cuda(),
-                                           layout.rel.cuda(), tile_e, tile_r,
-                                           n_segments), combiner)
+                vals.cuda(), stacked_layout(layout.tile_start.cuda(),
+                                            layout.rel.cuda(), tile_e, tile_r,
+                                            n_segments), combiner)
             torch.cuda.synchronize()
             assert edge_gather.windows_launches == before + 1
             if combiner == "add" and dtype == np.float32:

@@ -7,17 +7,20 @@
 Phases, in order; any failure exits non-zero:
   1. device : the card's name, the device count, nvidia-smi's name and
               power limit. Without CUDA the script exits 2 at once.
-  2. build  : nvcc builds every kernel of src/repro_torch/kernels/csrc
-              (-Xptxas -v: registers, shared memory, spills).
+  2. build  : nvcc builds every kernel of src/repro_torch/kernels/csrc;
+              one line per entry: registers, spills, static shared memory
+              (-Xptxas -v) and the dynamic shared memory of its launch.
   3. host   : graph500's R-MAT at scale 20 (edge factor 16, weighted,
               symmetrized), greedy 4-way partition, the engines' layouts.
   4. sweep  : the segment-combine kernel against its plain PyTorch version
               on the card: {add, min, max} x {float32, int32} over the
-              shapes of tests/test_kernels.py and the full-width layout,
-              at B=1 and B=8. Exact for min, max and int32 add;
-              float32 add at rtol = atol = 1e-5, and at the full width
-              (hub rows of 64k terms of both signs) within 1e-5 of each
-              row's sum of |value|.
+              shapes of tests/test_kernels.py, a layout with a window of
+              ~530 tiles (cut into many work items) and the full-width
+              layout, at B = 1, 3, 8 and 17 (below, at and above the 8
+              queries a block folds together). Exact for min, max and
+              int32 add; float32 add at rtol = atol = 1e-5, and at the
+              full width (hub rows of 64k terms of both signs) within
+              1e-5 of each row's sum of |value|.
   5. main   : the engine's entry points on the card (BFS run and an 8-root
               run_batch, WCC, PageRank 30, SSSP), with the kernel's launch
               count set to 0 just before and read just after; BFS checked
@@ -28,12 +31,15 @@ Phases, in order; any failure exits non-zero:
   7. timing : CUDA-event times of the kernel at the main path's shapes,
               beside its plain version, one scatter_reduce_ call on the
               same data (the yardstick; the port never calls it on its
-              kernel path) and the bytes bound at 3.35 TB/s.
+              kernel path) and the bytes bound at 3.35 TB/s; each row with
+              its launches on phase 5's path and launches x (ms -
+              bound_ms), the time they lose against the bound.
   8. shard host : build_shard_data on the same graph (4 shards): the
               stacked CSC lanes and the combined exchange's lanes.
   9. shard sweep: the stacked kernel (K2) against its plain version, as
               in phase 4, over small stacks (an empty shard, windows that
-              own no tile, hub rows) and the two full-width stacks.
+              own no tile, hub rows, a window cut into many work items)
+              and the two full-width stacks, at phase 4's batch sizes.
  10. shard  : ShardEngine(mesh=LocalMesh(4, cuda)) for the allgather,
               unicast and combined exchanges (BFS run and the 8-root
               run_batch, WCC, PageRank 30, SSSP), K2's launch count set to
@@ -42,7 +48,8 @@ Phases, in order; any failure exits non-zero:
               phase 5's one-device engine, BFS by graph500's rules; the
               wire words of each exchange beside the average degree.
  11. shard profile: phase 6 for each exchange.
- 12. shard timing: K2 at the two full-width stacks, as in phase 7.
+ 12. shard timing: K2 at the two full-width stacks, as in phase 7, with
+              the launches of phase 10's path.
 Then one JSON line with both kernels' numbers, the nvidia-smi line, and
 the result line {"ok": true, "device": {...}}.
 """
@@ -50,6 +57,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -215,21 +223,46 @@ def compare(torch, got, want, combiner, mass=None) -> float:
 # Phases
 # ---------------------------------------------------------------------------
 
+ENTRY_DTYPE = {"f": "float32", "i": "int32"}
+
+
+def entry_label(mangled: str) -> str:
+    """``segment_combine_kernel<T, OP, QB>``'s template arguments, from its
+    mangled name, as "int32 min QB=8"; other names as they are."""
+    m = re.search(r"kernelI([fi])Li(\d)ELi(\d+)E", mangled)
+    if not m:
+        return mangled
+    return (f"{ENTRY_DTYPE[m.group(1)]} {COMBINERS[int(m.group(2))]} "
+            f"QB={m.group(3)}")
+
+
 def phase_build() -> None:
-    from repro_torch.kernels import _build
+    """Build every kernel; one line per entry with its registers, spills,
+    static shared memory and the dynamic shared memory a launch at
+    tile_r = TILE_R gives it (its QB x tile_r accumulators)."""
+    from repro_torch.kernels import _build, edge_gather
     t0 = time.perf_counter()
     libs = _build.build_all()
+    smem = edge_gather._kernel()[1]
     for name in libs:
-        entry = "?"
+        entry, spills = "?", "?"
         for line in _build.log_of(name).splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-            elif "registers" in line or "spill" in line:
-                log("build", library=name, entry=entry,
-                    ptxas=repr(line.strip()))
+            elif "spill stores" in line:
+                spills = line.strip()
+            elif "Used" in line and "registers" in line:
+                label = entry_label(entry)
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                static = re.search(r"(\d+) bytes smem", line)
+                qb = re.search(r"QB=(\d+)", label)
+                log("build", library=name, entry=repr(label), registers=regs,
+                    static_smem_bytes=static.group(1) if static else 0,
+                    dynamic_smem_bytes=(smem(int(qb.group(1)), TILE_R)
+                                        if qb else "-"),
+                    spills=repr(spills))
     log("build", libraries=len(libs),
-        seconds=round(time.perf_counter() - t0, 3),
-        dynamic_smem_per_block=f"{TILE_R * 4}B (tile_r={TILE_R} x 4 B)")
+        seconds=round(time.perf_counter() - t0, 3))
 
 
 def phase_host():
@@ -332,6 +365,39 @@ def validate_bfs(torch, g, parent, root: int, supersteps: int,
     return level_max
 
 
+def dtype_name(dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def combines_of(kernel, exchange: str = "allgather"):
+    """The (combiner, dtype) of each kernel launch a superstep makes: the
+    key, `got` unless the kernel derives it from the identity, and the
+    carry; the combined exchange also folds send_act (int32 max) at the
+    source and derives `got` from it. Unicast launches none."""
+    if exchange == "unicast":
+        return []
+    calls = [(kernel.combiner, dtype_name(kernel.msg_dtype))]
+    if exchange == "combined":
+        calls.append(("max", "int32"))
+    elif not kernel.got_from_identity:
+        calls.append(("max", "int32"))
+    if kernel.carry_dtype is not None:
+        calls.append(("min", dtype_name(kernel.carry_dtype)))
+    return calls
+
+
+def row_launches(runs):
+    """Launches a timing row stands for on the main path: ``runs`` holds
+    (combines, batch, supersteps) of each run; a row is (combiner, dtype,
+    batch), a run's batch is 1 for `run` and 8 for `run_batch`."""
+    counts = {}
+    for calls, batch, steps in runs:
+        for combiner, dname in calls:
+            key = (combiner, dname, min(batch, BATCH))
+            counts[key] = counts.get(key, 0) + steps
+    return counts
+
+
 def same_result(got, want, name: str) -> None:
     if (got.supersteps, got.messages, got.comm) != (
             want.supersteps, want.messages, want.comm):
@@ -350,22 +416,23 @@ def same_result(got, want, name: str) -> None:
 
 def phase_main(torch, g, pg, kernel_engine, ref_engine, roots):
     """Run the main path through the kernel engine with the launch count
-    from 0; check each run; return the launch count of the whole path and
-    the runs."""
+    from 0; check each run; return the launch count of the whole path,
+    the runs and the launches of each timing row (``row_launches``)."""
     from repro_torch.kernels import edge_gather
     runs = [
-        ("bfs", "run", {"root": int(roots[0])}, 1),
-        ("bfs", "run_batch", {"root": roots}, 1),
-        ("wcc", "run", {}, 1),
-        ("pagerank", "run", {}, 1),
-        ("sssp", "run", {"root": int(roots[0])}, 2),
+        ("bfs", "run", {"root": int(roots[0])}),
+        ("bfs", "run_batch", {"root": roots}),
+        ("wcc", "run", {}),
+        ("pagerank", "run", {}),
+        ("sssp", "run", {"root": int(roots[0])}),
     ]
-    results = []
+    results, counted = [], []
     kernel_engine("bfs").run(root=int(roots[0]))  # warm-up, untimed
     torch.cuda.synchronize()
     edge_gather.launches = 0
-    for name, entry, kwargs, calls in runs:
+    for name, entry, kwargs in runs:
         eng = kernel_engine(name)
+        calls = combines_of(eng.kernel)
         before = edge_gather.launches
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -383,12 +450,14 @@ def phase_main(torch, g, pg, kernel_engine, ref_engine, roots):
             wall_s=round(wall, 6), teps=round(messages / wall),
             launches=launched,
             max_memory_allocated=torch.cuda.max_memory_allocated())
-        if launched != steps * calls:
+        if launched != steps * len(calls):
             raise AssertionError(f"{name} {entry}: {launched} launches for "
-                                 f"{steps} supersteps x {calls} calls")
+                                 f"{steps} supersteps x {calls}")
         results.append((name, entry, kwargs, outs))
+        counted.append((calls, len(outs), steps))
     total = edge_gather.launches
     log("main", launches_total=total)
+    rows = row_launches(counted)
 
     for name, entry, kwargs, outs in results:
         want = getattr(ref_engine(name), entry)(**kwargs)
@@ -403,26 +472,37 @@ def phase_main(torch, g, pg, kernel_engine, ref_engine, roots):
                 log("check", algorithm="bfs", entry=entry, root=int(r),
                     graph500="ok", depth=depth)
         log("check", algorithm=name, entry=entry, versus_ref="ok")
-    return total, results
+    return total, results, rows
 
 
-def phase_timing(torch, layout, device):
+def with_launches(rec, rows) -> dict:
+    """A timing row with its launches on the main path and the time they
+    lose against the bound, launches x (ms - bound_ms)."""
+    n = None if rows is None else rows.get(
+        (rec["combiner"], rec["dtype"], rec["batch"]), 0)
+    rec["launches"] = n
+    rec["loss_ms"] = None if n is None else n * (rec["ms"] - rec["bound_ms"])
+    return rec
+
+
+def phase_timing(torch, layout, device, rows=None):
     """Kernel, plain-version and scatter_reduce_ times at the main path's
-    full-width layout, for the main path's key combines."""
+    full-width layout, for the main path's key combines, with each row's
+    launches on the main path (``rows``, from phase 5)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import REDUCE, identity_for
     gen = torch.Generator(device=device).manual_seed(1)
-    rows = (layout.window_id.to(torch.int64).repeat_interleave(layout.tile_e)
-            * layout.tile_r + layout.rel)
-    rows = torch.where(layout.rel < layout.tile_r, rows,
-                       layout.num_segments).clamp(max=layout.num_segments)
+    row_of = (layout.window_id.to(torch.int64).repeat_interleave(
+        layout.tile_e) * layout.tile_r + layout.rel)
+    row_of = torch.where(layout.rel < layout.tile_r, row_of,
+                         layout.num_segments).clamp(max=layout.num_segments)
     dtypes = {"float32": torch.float32, "int32": torch.int32}
     records = []
     for combiner, dname, used_by in TIMED:
         dtype = dtypes[dname]
         for batch in (1, BATCH):
             vals = lane_values(torch, layout, combiner, dtype, batch, gen)
-            index = rows.expand(vals.shape)
+            index = row_of.expand(vals.shape)
             out = torch.full((batch, layout.num_segments + 1),
                              identity_for(combiner, dtype), dtype=dtype,
                              device=device)
@@ -438,6 +518,7 @@ def phase_timing(torch, layout, device):
                    "bound_ms": bound_ms(layout, batch),
                    "library_ms": library_ms}
             rec["bound_share"] = rec["bound_ms"] / ms
+            with_launches(rec, rows)
             log("timing", **{k: v for k, v in rec.items() if k != "used_by"})
             records.append(rec)
             del vals, index, out
@@ -488,12 +569,12 @@ def drive(torch, device, full: bool = True):
     deg = g.out_degrees()
     rng = np.random.default_rng(GRAPH_SEED)
     roots = rng.choice(np.flatnonzero(deg > 0), size=BATCH, replace=False)
-    launches, engine_runs = None, []
+    launches, engine_runs, rows = None, [], None
     if full:
-        launches, engine_runs = phase_main(torch, g, pg, kernel_engine,
-                                           ref_engine, roots)
+        launches, engine_runs, rows = phase_main(torch, g, pg, kernel_engine,
+                                                 ref_engine, roots)
         phase_profile(torch, kernel_engine, int(roots[0]))
-    records = phase_timing(torch, layout, device)
+    records = phase_timing(torch, layout, device, rows)
     kernel_engines.clear()
     ref_engines.clear()
     del layout
@@ -522,14 +603,15 @@ def drive_shard(torch, device, g, pg, roots, engine_runs, full=True):
     for name, stack in stacks.items():
         window_spread(name, stack.tile_start)
     max_err = phase_sweep_stacked(torch, stacks, device)
-    launches = None
+    launches, rows = None, None
     if full:
-        launches = phase_shard(torch, device, g, engine, roots, engine_runs)
+        launches, rows = phase_shard(torch, device, g, engine, roots,
+                                     engine_runs)
         for exchange in EXCHANGES:
             phase_profile(torch,
                           lambda name: engine(exchange, name, "kernel"),
                           int(roots[0]), exchange=exchange)
-    records = phase_timing_stacked(torch, stacks, device)
+    records = phase_timing_stacked(torch, stacks, device, rows)
     head = records[0]  # CSC int32 min at B=1: allgather's BFS/WCC key
     return {**KERNEL2, "launches": launches, "max_abs_err": max_err,
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -610,16 +692,6 @@ def phase_sweep_stacked(torch, full_stacks, device) -> float:
     return max_err
 
 
-def k2_calls(exchange: str, kernel) -> int:
-    """K2 launches a superstep: allgather folds the key, plus `got` for a
-    kernel that is not got_from_identity and the carry; combined folds the
-    key and send_act at the source, plus the carry; unicast none."""
-    extra = kernel.carry_dtype is not None
-    if exchange == "allgather":
-        return 1 + (not kernel.got_from_identity) + extra
-    return 2 + extra if exchange == "combined" else 0
-
-
 def same_as_engine(got, want, name: str) -> None:
     """A shard-engine run against the one-device engine's: states,
     supersteps and messages (a per-query state leaf is held once per shard
@@ -642,13 +714,17 @@ def phase_shard(torch, device, g, engine, roots, engine_runs) -> int:
     """The shard path: every exchange's runs through the kernel shard
     engine with K2's launch count from 0; then each run against the
     backend="ref" shard engine and the one-device engine. Returns the
-    launch count of the whole path."""
+    launch count of the whole path and the launches of each stack's
+    timing rows (``row_launches``)."""
     from repro_torch.kernels import edge_gather
     for exchange in EXCHANGES:  # warm-up, untimed
         engine(exchange, "bfs", "kernel").run(root=int(roots[0]))
     torch.cuda.synchronize()
     edge_gather.windows_launches = 0
     results, words = [], {}
+    # Launches of each stack's timing rows: the allgather exchange folds
+    # over the CSC stack, the combined exchange over the combined stack.
+    counted = {"allgather": [], "unicast": [], "combined": []}
     for exchange in EXCHANGES:
         for name, entry, kwargs, _ in engine_runs:
             eng = engine(exchange, name, "kernel")
@@ -670,14 +746,17 @@ def phase_shard(torch, device, g, engine, roots, engine_runs) -> int:
                 wire_words=wire, wall_s=round(wall, 6),
                 teps=round(messages / wall), launches=launched,
                 max_memory_allocated=torch.cuda.max_memory_allocated())
-            calls = k2_calls(exchange, eng.kernel)
-            if launched != steps * calls:
+            calls = combines_of(eng.kernel, exchange)
+            if launched != steps * len(calls):
                 raise AssertionError(
                     f"{exchange} {name} {entry}: {launched} launches for "
-                    f"{steps} supersteps x {calls} calls")
+                    f"{steps} supersteps x {calls}")
             results.append((exchange, name, entry, kwargs, outs))
+            counted[exchange].append((calls, len(outs), steps))
     total = edge_gather.windows_launches
     log("shard", launches_total=total)
+    rows = {"csc": row_launches(counted["allgather"]),
+            "combined": row_launches(counted["combined"])}
 
     avg_degree = g.num_edges / g.num_vertices
     for name, entry, _, _ in engine_runs:
@@ -702,12 +781,13 @@ def phase_shard(torch, device, g, engine, roots, engine_runs) -> int:
         log("check", exchange=exchange, algorithm=name, entry=entry,
             versus_ref="ok", versus_engine="ok",
             graph500="ok" if name == "bfs" else "-")
-    return total
+    return total, rows
 
 
-def phase_timing_stacked(torch, stacks, device):
+def phase_timing_stacked(torch, stacks, device, rows=None):
     """K2's kernel, plain-version and scatter_reduce_ times at the two
-    full-width stacks, for the shard path's combines."""
+    full-width stacks, for the shard path's combines, with each row's
+    launches on the shard path (``rows[stack]``, from phase 10)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import REDUCE, identity_for
     gen = torch.Generator(device=device).manual_seed(3)
@@ -720,18 +800,18 @@ def phase_timing_stacked(torch, stacks, device):
             layout.tile_start[:, 1:].contiguous(),
             tile.expand(layout.rel.shape[0], -1).contiguous(),
             right=True).repeat_interleave(layout.tile_e, dim=1)
-        rows = torch.where(
+        row_of = torch.where(
             (layout.rel < layout.tile_r)
             & (window < layout.tile_start.shape[1] - 1),
             window * layout.tile_r + layout.rel, layout.num_segments)
-        rows = rows.clamp(max=layout.num_segments)
+        row_of = row_of.clamp(max=layout.num_segments)
         del window
         for combiner, dname, used_by in TIMED_STACKED[stack]:
             dtype = dtypes[dname]
             for batch in (1, BATCH):
                 vals = lane_values(torch, layout, combiner, dtype, batch,
                                    gen)
-                index = rows.expand(vals.shape)
+                index = row_of.expand(vals.shape)
                 out = torch.full(vals.shape[:-1] + (layout.num_segments + 1,),
                                  identity_for(combiner, dtype), dtype=dtype,
                                  device=device)
@@ -748,6 +828,7 @@ def phase_timing_stacked(torch, stacks, device):
                        "bound_ms": bound_ms_stacked(layout, batch),
                        "library_ms": library_ms}
                 rec["bound_share"] = rec["bound_ms"] / ms
+                with_launches(rec, None if rows is None else rows[stack])
                 log("shard_timing",
                     **{k: v for k, v in rec.items() if k != "used_by"})
                 records.append(rec)

@@ -1,60 +1,86 @@
-// Windowed semiring segment-combine for Hopper (sm_90a), two entries.
+// Windowed semiring segment-combine for Hopper (sm_90a).
 //
-// K1, gravfm_segment_combine, replaces
-// repro/kernels/edge_gather.py:segment_combine_pallas (the only
-// pl.pallas_call of the JAX package) together with the epilogue of
-// segment_combine_windows (unwritten windows -> identity, slice to
-// num_segments), over one layout.
-//
-// K2, gravfm_segment_combine_windows, replaces
-// repro/kernels/edge_gather.py:segment_combine_windows as the shard engine
-// calls it: the same function over a stack of per-shard layouts (one
-// tile_start and rel row per shard, vals (batch, shard, lane)) in one
-// launch, one block per (window, query x shard). Its bound and design are
-// K1's; the blocks of the extra grid rows are independent.
+// One kernel, one C entry (gravfm_segment_combine_windows), launched by
+// both wrappers of kernels/edge_gather.py:
+//   * K1, segment_combine, replaces
+//     repro/kernels/edge_gather.py:segment_combine_pallas (the only
+//     pl.pallas_call of the JAX package) with the epilogue of
+//     segment_combine_windows, over one layout: a stack of one shard;
+//   * K2, segment_combine_windows, replaces
+//     repro/kernels/edge_gather.py:segment_combine_windows as the shard
+//     engine calls it: the same function over a stack of per-shard
+//     layouts (rel (S, L), vals (B, S, L)) in one launch.
 //
 // What it computes. The lanes of a static EdgeLayout are sorted by
 // destination segment and cut into tiles of tile_e lanes; window w owns
 // the tiles [tile_start[w], tile_start[w+1]) and the rows
-// [w*tile_r, (w+1)*tile_r). For every query b of the batch:
-//   out[b, w*tile_r + r] = fold over the lanes of window w with rel == r
-//                          of vals[b, lane]
+// [w*tile_r, (w+1)*tile_r). For every query b and shard s:
+//   out[b, s, w*tile_r + r] = fold over the lanes of shard s's window w
+//                             with rel == r of vals[b, s, lane]
 // with fold one of add / min / max, for float32 or int32 values. Padding
 // lanes hold rel == tile_r and match no row. Rows >= num_segments are not
-// stored, and a window that owns no tile stores the identity.
+// stored, and a window that owns no tile stores the identity (the shard
+// engine's window_written epilogue rests on that).
 //
-// Design. The TPU kernel walked the tiles in a sequential grid and kept a
-// window's output block resident in VMEM across consecutive tiles. Hopper
-// blocks run in parallel and in no order, so here one block owns one
-// (window, query) pair and walks the window's whole tile range itself:
-//   * tile_r accumulators live in shared memory (tile_r * 4 bytes),
-//     filled with the identity;
-//   * the block's threads read rel and vals as 16-byte vectors (4 lanes a
-//     thread, neighbouring threads on neighbouring addresses) and fold runs
-//     of equal rel in registers. Lanes are sorted by row, so a thread's run
-//     stays open across its strided vectors: a hub row spanning many tiles
-//     costs each thread one shared-memory atomic when the run ends, not
-//     one per vector. (float32 add in shared memory is a compare-and-swap
-//     loop, so contended atomics cost most there.)
-//   * the block stores its tile_r rows once, bounded by num_segments.
-// There is no one-hot (tile_r x tile_e) compare as in the Pallas body:
-// each lane is read and folded exactly once.
+// Bound. The work is bound by bytes: a call must read rel once (4 B a
+// lane), vals once per query (4 B a lane) and write 4 B per output row
+// per query; the fold is one operation per lane, three orders of
+// magnitude under the card's rate. There is no product anywhere, so the
+// tensor cores (wgmma) have nothing to do here. The design keeps every
+// partial on chip and moves that minimum, plus the work list and, for
+// the few windows cut into several items, their partial rows.
 //
-// Bound. The work is memory-bound: per call it reads rel (4 B a lane) and
-// vals (4 B a lane per query) once and writes 4 B per output row per
-// query; the fold is one operation per lane. The design reads every input
-// byte once with vector loads and keeps all partial sums on chip, so the
-// device-memory traffic is that minimum plus tile_start.
+// Design, one point for each way the first version lost time (the
+// measurements behind each choice are in PERF.md's findings):
+//   1. One rel read for the whole batch. A block folds a chunk of QB <= 8
+//      queries (a compile-time constant picked from the batch: 1, 2, 4 or
+//      8) over the same lanes: QB x tile_r accumulators in shared memory,
+//      rel read once per chunk. (The first version read rel once per
+//      query, 2x the bound's bytes at B=8.)
+//   2. Warp-segmented fold. Lanes are sorted by row, so a row's lanes are
+//      consecutive. A thread folds its 4 lanes, a segmented inclusive scan
+//      over the warp (__shfl_up_sync, keyed by each thread's last row)
+//      joins a row across threads, and only the thread where a row ends
+//      issues the shared-memory atomic: one a row a warp, where a
+//      per-thread fold costs one for each thread the row touches. That
+//      matters most for float32 add, whose shared-memory atomic is a
+//      compare-and-swap loop on sm_90 (cuobjdump -sass shows
+//      ATOMS.CAST.SPIN); int32 add, min and max are single native ATOMS
+//      (float32 min/max through the sign-split integer atomics below). A
+//      variant that kept each thread's open run in registers for the
+//      native atomics measured the same within the run-to-run spread, so
+//      one fold serves every combiner.
+//   3. Balanced work list. kernels/layout.py:work_list cuts each (shard,
+//      window) tile range into items of at most WORK_TILES tiles, once per
+//      layout, on the host, sorted by size, most first; one block an item.
+//      A window that owns no tile is one empty item (it stores the
+//      identity). A window cut into k items is finished in the same
+//      launch: each item stores its partial rows to its slot of `scratch`
+//      (allocated by the wrapper), fences, and counts itself on the
+//      window's arrival counter (kept with the layout on the device); the
+//      last to arrive folds the k slots in slot order, stores the rows and
+//      sets the counter back to 0 for the next call. No block waits on
+//      another, so no launch order can deadlock.
+//   4. Bytes in flight. A persistent variant (SMs x resident blocks
+//      walking the work list; one producer warp streaming rel and QB vals
+//      rows through a 4-stage shared-memory ring with cp.async.bulk and
+//      mbarriers; 8 consumer warps) was built and measured on the card:
+//      it was 8-20 % slower than this grid of one block per item at every
+//      shape, with every check passing. It is not kept. Each thread here
+//      keeps one 16-byte rel load and QB 16-byte vals loads in flight per
+//      step; its registers (40 to 47 a thread at QB <= 4, 57 to 61 at
+//      QB = 8, as ptxas reports them) let 4 to 6 blocks of 256 threads
+//      share an SM, which the measurements show is enough to stream
+//      within 20 % of the bound.
 //
 // Determinism. min and max (float32 through the sign-split integer
-// atomics below) and int32 add are exact and independent of order.
-// float32 add through shared-memory atomics is exact up to the order of
-// the adds, which varies from run to run; callers compare it with the
-// plain version at rtol = atol = 1e-5 (the tolerance the JAX tests apply
-// to the Pallas kernel against its oracle).
-//
-// Known weak spot: a hub window (many tiles) runs serially in one block;
-// splitting long windows across blocks is later work.
+// atomics) and int32 add are exact and independent of order. float32 add
+// is exact up to the order of the adds: fixed within a warp's scan and
+// across a split window's partials, but the shared-memory atomics of
+// different warps land in a varying order, so the last bits vary from
+// run to run; callers compare it with the plain version at
+// rtol = atol = 1e-5 (the tolerance the JAX tests apply to the Pallas
+// kernel against its oracle).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +90,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr size_t kSmemMax = 232448;  // a Hopper block's dynamic shared memory
 
 enum Combiner : int { kAdd = 0, kMin = 1, kMax = 2 };
 enum DType : int { kFloat32 = 0, kInt32 = 1 };
@@ -107,6 +134,10 @@ __device__ __forceinline__ void atomic_fold(T* addr, T v) {
     atomicMax(addr, v);
   }
 }
+
+// ---------------------------------------------------------------------------
+// Design point 2: the warp-segmented fold.
+// ---------------------------------------------------------------------------
 
 // One warp's fold of 128 consecutive lanes (4 a thread, in lane order)
 // for nq <= QB queries into the shared accumulators acc[j*tile_r + row].
@@ -167,6 +198,10 @@ __device__ __forceinline__ void fold_warp(T* acc, const int (&k)[4],
   }
 }
 
+// ---------------------------------------------------------------------------
+// Design point 3: the work list.
+// ---------------------------------------------------------------------------
+
 // Item header: shard, window, tiles [lo, hi); for a window cut into
 // several items its arrival counter, this item's partial slot, the
 // window's first slot and its item count (kernels/layout.py:work_list).
@@ -180,12 +215,17 @@ __device__ __forceinline__ Item load_item(const int* items, int i) {
   return Item{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
+// ---------------------------------------------------------------------------
+// The kernel.
+// ---------------------------------------------------------------------------
+
 // Block i folds work item i for every query, QB queries at a time: the
-// item's rel vectors are read once per chunk of QB queries. The item's
-// tile_r rows go to out, or, for a window cut into several items, to the
-// item's partial slot in `scratch` (slot, query, row); the last item of
-// such a window to arrive folds the window's slots in slot order, stores
-// the rows and sets the window's arrival counter back to 0.
+// item's rel vectors are read once per chunk of QB queries, with 16-byte
+// loads, neighbouring threads on neighbouring vectors. The item's tile_r
+// rows go to out, or, for a window cut into several items, to the item's
+// partial slot in `scratch` (slot, query, row); the last item of such a
+// window to arrive folds the window's slots in slot order, stores the
+// rows and sets the window's arrival counter back to 0.
 template <typename T, int OP, int QB>
 __global__ void __launch_bounds__(kThreads)
 segment_combine_kernel(const int* __restrict__ items,
@@ -265,7 +305,8 @@ segment_combine_kernel(const int* __restrict__ items,
 // at most 8.
 inline int pick_qb(int batch) { return batch >= 8 ? 8 : batch > 2 ? 4 : batch; }
 
-constexpr size_t kSmemMax = 232448;  // a Hopper block's dynamic shared memory
+template <typename T, int QB>
+size_t smem_bytes(int tile_r) { return (size_t)QB * tile_r * sizeof(T); }
 
 template <typename T, int OP, int QB>
 cudaError_t launch(const int* items, int n_items, int* arrivals,
@@ -273,15 +314,15 @@ cudaError_t launch(const int* items, int n_items, int* arrivals,
                    int n_shards, int batch, long long num_lanes,
                    int num_segments, int tile_e, int tile_r,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)QB * tile_r * sizeof(T);
+  auto* kernel = segment_combine_kernel<T, OP, QB>;
+  const size_t smem = smem_bytes<T, QB>(tile_r);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        segment_combine_kernel<T, OP, QB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  segment_combine_kernel<T, OP, QB><<<n_items, kThreads, smem, stream>>>(
+  kernel<<<n_items, kThreads, smem, stream>>>(
       items, arrivals, static_cast<T*>(scratch), rel,
       static_cast<const T*>(vals), static_cast<T*>(out), n_shards, batch,
       num_lanes, num_segments, tile_e, tile_r);
@@ -304,10 +345,21 @@ cudaError_t launch_any(const int* items, int n_items, int* arrivals,
 
 }  // namespace
 
+// Dynamic shared memory a launch over `batch` queries and tile_r rows
+// needs, in bytes (the wrapper checks it against a block's 227 KB).
+extern "C" long long gravfm_segment_combine_smem(int batch, int tile_r) {
+  switch (pick_qb(batch)) {
+    case 1: return (long long)smem_bytes<int, 1>(tile_r);
+    case 2: return (long long)smem_bytes<int, 2>(tile_r);
+    case 4: return (long long)smem_bytes<int, 4>(tile_r);
+    default: return (long long)smem_bytes<int, 8>(tile_r);
+  }
+}
+
 // C entry point, bound with ctypes; both wrappers launch it (K1 with one
 // shard). items is the layout's work list ((n_items, 8) int32,
 // kernels/layout.py:work_list) and arrivals its counters (0 between
-// calls); scratch holds (slots, batch, tile_r) values of the split
+// calls); scratch holds (slots, batch, tile_r) values for the split
 // windows' partials. rel is (n_shards, num_lanes), vals (batch, n_shards,
 // num_lanes), out (batch, n_shards, num_segments), all contiguous; tile_e
 // is a multiple of 4 and every pointer 16-byte aligned. Launches on

@@ -50,11 +50,6 @@ _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
 _SMEM_MAX = 232448
 
 
-def _qb(batch: int) -> int:
-    """Queries one block folds together (the kernel's pick_qb)."""
-    return 8 if batch >= 8 else 4 if batch > 2 else batch
-
-
 def segment_combine_plain(window_id: torch.Tensor, rel: torch.Tensor,
                           vals: torch.Tensor, *, combiner: str, tile_e: int,
                           tile_r: int, num_segments: int) -> torch.Tensor:
@@ -138,12 +133,16 @@ def segment_combine_windows_plain(tile_start: torch.Tensor, rel: torch.Tensor,
 
 @functools.cache
 def _kernel():
-    fn = _build.load("segment_combine").gravfm_segment_combine_windows
+    lib = _build.load("segment_combine")
+    fn = lib.gravfm_segment_combine_windows
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32,
                    ctypes.c_longlong, i32, i32, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
-    return fn
+    smem = lib.gravfm_segment_combine_smem
+    smem.argtypes = [i32, i32]
+    smem.restype = ctypes.c_longlong
+    return fn, smem
 
 
 def _check_windows(tile_start, rel, vals, combiner, tile_e, tile_r,
@@ -214,7 +213,8 @@ def _launch(work, rel, vals, combiner, tile_e, tile_r, num_segments):
     batch = vals.numel() // (n_shards * lanes) if lanes else 0
     if tile_e % 4:
         raise ValueError(f"tile_e must be a multiple of 4, got {tile_e}")
-    if _qb(batch) * tile_r * 4 > _SMEM_MAX:
+    kernel, smem = _kernel()
+    if smem(max(batch, 1), tile_r) > _SMEM_MAX:
         raise ValueError(f"tile_r={tile_r} needs more shared memory than "
                          "a block has")
     out = torch.empty(vals.shape[:-1] + (num_segments,), dtype=vals.dtype,
@@ -227,7 +227,7 @@ def _launch(work, rel, vals, combiner, tile_e, tile_r, num_segments):
                           device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(
+        err = kernel(
             items.data_ptr(), items.shape[0], work.arrivals.data_ptr(),
             scratch.data_ptr(), rel.data_ptr(), vals.data_ptr(),
             out.data_ptr(), n_shards, batch, lanes, num_segments, tile_e,

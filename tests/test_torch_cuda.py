@@ -17,8 +17,9 @@ from repro_torch.core.engine import Engine
 from repro_torch.core.engine_shardmap import ShardEngine
 from repro_torch.core.mesh import LocalMesh
 from repro_torch.kernels import edge_gather, ops
-from repro_torch.kernels.layout import (StackedLayout, build_layout,
-                                       stack_layouts, stacked_layout)
+from repro_torch.kernels.layout import (WORK_TILES, StackedLayout,
+                                       build_layout, stack_layouts,
+                                       stacked_layout)
 
 # The tensors here are tiny: one CPU thread keeps torch's thread pool off
 # the cores that parallel test workers share.
@@ -65,6 +66,90 @@ def test_cuda_kernel_matches_plain(combiner, dtype):
                                            atol=1e-5)
             else:
                 assert torch.equal(got.cpu(), want)
+
+
+def _values(rng, dtype, shape):
+    if np.issubdtype(dtype, np.floating):
+        return torch.from_numpy(rng.standard_normal(shape).astype(dtype))
+    return torch.from_numpy(rng.integers(-1000, 1000, shape).astype(dtype))
+
+
+def _assert_kernel_matches(got, want, combiner, dtype):
+    if combiner == "add" and dtype == np.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+# A hub window of ~60 tiles of 32 lanes (more than WORK_TILES, so it is cut
+# into several work items) beside sparse windows and windows with no tile.
+HUB = (2400, 300, 32, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 3, 8, 17])
+@pytest.mark.parametrize("combiner,dtype", COMBINER_DTYPES)
+def test_cuda_kernel_batches_match_plain(combiner, dtype, batch):
+    """B below, at and above the 8 queries a block folds together, over a
+    layout with a window cut into several work items."""
+    _need_card()
+    rng = np.random.default_rng(batch)
+    n_edges, n_segments, tile_e, tile_r = HUB
+    seg = np.sort((n_segments * rng.random(n_edges) ** 4).astype(np.int64))
+    tl = build_layout(seg, n_segments, tile_e=tile_e, tile_r=tile_r)
+    assert np.diff(tl.tile_start).max() > WORK_TILES
+    vals = _values(rng, dtype, (batch, tl.num_lanes))
+    want = ops.segment_combine_layout(vals, tl.to("cpu"), combiner)
+    got = ops.segment_combine_layout(vals.cuda(), tl.to("cuda"), combiner)
+    _assert_kernel_matches(got, want, combiner, dtype)
+    st, _, _ = stack_layouts([tl, build_layout(seg[:0], n_segments,
+                                               tile_e=tile_e, tile_r=tile_r),
+                              build_layout(seg[::7], n_segments,
+                                           tile_e=tile_e, tile_r=tile_r)])
+    vals = _values(rng, dtype, (batch,) + st["rel"].shape)
+    tile_start = torch.from_numpy(st["tile_start"])
+    rel = torch.from_numpy(st["rel"])
+    want = ops.segment_combine_stacked(
+        vals, StackedLayout(tile_start, rel, tile_e, tile_r, n_segments),
+        combiner)
+    got = ops.segment_combine_stacked(
+        vals.cuda(), stacked_layout(tile_start.cuda(), rel.cuda(), tile_e,
+                                    tile_r, n_segments), combiner)
+    _assert_kernel_matches(got, want, combiner, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combiner", ["add", "min"])
+def test_cuda_split_windows_repeat(combiner):
+    """A layout whose windows are cut into work items, launched twice on
+    the same layout: equal results show each window's arrival counter was
+    reset to 0 by the first call."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    seg = np.sort(rng.integers(0, 40, 6000))  # one window, ~190 tiles
+    layout = build_layout(seg, 40, tile_e=32, tile_r=64).to("cuda")
+    assert int(layout.work.arrivals.numel()) == 1
+    assert layout.work.n_slots == -(-layout.window_id.numel() // WORK_TILES)
+    vals = _values(rng, np.int32, (5, layout.rel.numel())).cuda()
+    first = ops.segment_combine_layout(vals, layout, combiner)
+    second = ops.segment_combine_layout(vals, layout, combiner)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert int(layout.work.arrivals.abs().sum()) == 0
+    want = ops.segment_combine_layout(vals.cpu(), layout._replace(
+        window_id=layout.window_id.cpu(), tile_start=layout.tile_start.cpu(),
+        rel=layout.rel.cpu()), combiner)
+    assert torch.equal(first.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_needs_work_list():
+    _need_card()
+    layout = build_layout(np.arange(10), 10, tile_e=16, tile_r=8).to("cuda")
+    with pytest.raises(ValueError, match="work list"):
+        ops.segment_combine_layout(torch.zeros(layout.rel.numel(),
+                                               device="cuda"),
+                                   layout._replace(work=None), "min")
 
 
 @pytest.mark.gpu

@@ -7,13 +7,17 @@ held against the Pallas kernel in interpret mode, and its
 add at rtol = atol = 1e-5 (the tolerance tests/test_kernels.py applies to
 Pallas vs. its oracle). The stacked combine's plain version (K2, the
 shard engine's) is held, shard by shard, against the JAX package's
-``segment_combine_windows`` in interpret mode. The host-side copies
+``segment_combine_windows`` in interpret mode, and so is what the CUDA
+kernel does with its work list (each item folded by the plain oracle, the
+partials of split windows folded after). The host-side copies
 (graph generators, partitioner, layout) must give field-identical arrays.
 The CUDA kernels themselves are held against the plain versions in
 tests/test_torch_cuda.py.
 """
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,8 +32,8 @@ from repro.kernels.layout import build_layout as jax_build_layout
 from repro_torch.core import graph as TG
 from repro_torch.core import partition as TPT
 from repro_torch.kernels import edge_gather, ops, ref
-from repro_torch.kernels.layout import (StackedLayout, build_layout,
-                                       stack_layouts)
+from repro_torch.kernels.layout import (WORK_TILES, StackedLayout,
+                                       build_layout, stack_layouts, work_list)
 
 # The tensors here are tiny: one CPU thread keeps torch's thread pool off
 # the cores that parallel test workers share.
@@ -328,3 +332,162 @@ def test_stacked_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         ops.segment_combine_stacked(torch.zeros(2, lanes),
                                     layout._replace(num_segments=40), "min")
+
+
+# The CUDA kernel's work list (kernels/layout.py:work_list). Two layouts:
+# "hub" puts ~110 tiles of 32 lanes in its first window (more than
+# WORK_TILES, so that window is cut into several items); "stack" holds a
+# hub shard, an empty shard and a sparse shard whose windows mostly own no
+# tile. (edges of each shard, segments, tile_e, tile_r, skew).
+WORK_LAYOUTS = {
+    "hub": ((5000,), 300, 32, 64, 4),
+    "stack": ((4000, 0, 40), 900, 32, 64, 4),
+}
+
+
+@functools.cache
+def _work_layout(name):
+    sizes, n_segments, tile_e, tile_r, skew = WORK_LAYOUTS[name]
+    rng = np.random.default_rng(len(name))
+    layouts = [build_layout(
+        np.sort(n_segments * rng.random(n) ** skew).astype(np.int64),
+        n_segments, tile_e=tile_e, tile_r=tile_r) for n in sizes]
+    st, _, _ = stack_layouts(layouts)
+    return st
+
+
+@pytest.mark.parametrize("name,max_tiles", [("hub", WORK_TILES),
+                                            ("stack", WORK_TILES),
+                                            ("stack", 5), ("stack", 1)])
+def test_work_list_covers_every_tile_range(name, max_tiles):
+    """Each (shard, window) tile range is covered exactly once, in items
+    of at most ``max_tiles`` tiles; a window that owns no tile is one
+    empty item (so it is still written); a split window's partial slots
+    are consecutive and its counter is its own."""
+    tile_start = _work_layout(name)["tile_start"].astype(np.int64)
+    n_shards, n_windows = tile_start.shape[0], tile_start.shape[1] - 1
+    items = work_list(tile_start, max_tiles)
+    assert items.dtype == np.int32 and items.shape[1] == 8
+    tiles = items[:, 3] - items[:, 2]
+    assert (tiles <= max_tiles).all() and (tiles >= 0).all()
+    assert (np.diff(tiles) <= 0).all()  # most tiles first
+    if name == "hub" or max_tiles < WORK_TILES:
+        assert (items[:, 7] > 1).any()  # some window is cut
+    counters, slots = [], []
+    for s in range(n_shards):
+        for w in range(n_windows):
+            mine = items[(items[:, 0] == s) & (items[:, 1] == w)]
+            mine = mine[np.argsort(mine[:, 2], kind="stable")]
+            lo, hi = tile_start[s, w], tile_start[s, w + 1]
+            parts = len(mine)
+            assert parts == max(1, -(-(hi - lo) // max_tiles))
+            assert (mine[:, 7] == parts).all()
+            # consecutive, gap-free, exactly [lo, hi)
+            np.testing.assert_array_equal(mine[:, 2], np.r_[lo, mine[:-1, 3]])
+            assert mine[0, 2] == lo and mine[-1, 3] == hi
+            if hi == lo:
+                assert parts == 1 and mine[0, 2] == mine[0, 3]
+            if parts == 1:
+                assert (mine[0, 4], mine[0, 5], mine[0, 6]) == (-1, -1, -1)
+                continue
+            assert len(set(mine[:, 4])) == 1 and len(set(mine[:, 6])) == 1
+            np.testing.assert_array_equal(
+                np.sort(mine[:, 5]), mine[0, 6] + np.arange(parts))
+            counters.append(mine[0, 4])
+            slots.extend(mine[:, 5])
+    np.testing.assert_array_equal(np.sort(counters), np.arange(len(counters)))
+    np.testing.assert_array_equal(np.sort(slots), np.arange(len(slots)))
+
+
+FOLD = {"add": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def _fold_by_items(items, tile_start, rel, vals, combiner, tile_e, tile_r,
+                   num_segments):
+    """What the CUDA kernel does with the work list, in the list's order,
+    with the plain oracle as each item's fold: an item that is its whole
+    window stores its rows; one of a split window stores its partial in
+    its slot, and the last of the window to arrive folds the slots in
+    slot order and stores the rows. Every row is written exactly once."""
+    batch, n_shards = vals.shape[:2]
+    bad = torch.iinfo(torch.int32).min + 7 if vals.dtype == torch.int32 \
+        else float("nan")
+    out = torch.full((batch, n_shards, num_segments), bad, dtype=vals.dtype)
+    written = torch.zeros((n_shards, num_segments), dtype=torch.int32)
+    n_slots = int((items[:, 5] >= 0).sum())
+    scratch = torch.full((n_slots, batch, tile_r), bad, dtype=vals.dtype)
+    arrivals = np.zeros(int(items[:, 4].max()) + 1, np.int64)
+    for s, w, lo, hi, counter, slot, first, parts in items.tolist():
+        lanes = slice(lo * tile_e, hi * tile_e)
+        part = ref.segment_combine(vals[:, s, lanes],
+                                   rel[s, lanes].to(torch.int64), tile_r,
+                                   combiner)
+        if parts > 1:
+            scratch[slot] = part
+            arrivals[counter] += 1
+            if arrivals[counter] < parts:
+                continue
+            arrivals[counter] = 0
+            part = scratch[first]
+            for k in range(1, parts):
+                part = FOLD[combiner](part, scratch[first + k])
+        rows = slice(w * tile_r, min((w + 1) * tile_r, num_segments))
+        width = rows.stop - rows.start
+        if width > 0:
+            out[:, s, rows] = part[:, :width]
+            written[s, rows] += 1
+    assert (arrivals == 0).all()  # every counter back to 0 for the next call
+    assert (written == 1).all()
+    return out
+
+
+@functools.cache
+def _pallas_windows(name, combiner, dtype):
+    """The JAX Pallas result (interpret mode) for 17 queries of random
+    values over a WORK_LAYOUTS layout, shard by shard."""
+    st = _work_layout(name)
+    _, n_segments, tile_e, tile_r, _ = WORK_LAYOUTS[name]
+    rng = np.random.default_rng(17)
+    shape = (17,) + st["rel"].shape
+    if np.issubdtype(dtype, np.floating):
+        vals = rng.standard_normal(shape).astype(dtype)
+    else:
+        vals = rng.integers(-1000, 1000, size=shape).astype(dtype)
+    n_windows = st["window_written"].shape[1]
+    want = []
+    for s in range(shape[1]):
+        fold = jax.vmap(functools.partial(
+            jax_windows, jnp.asarray(st["window_id"][s]),
+            jnp.asarray(st["rel"][s]), combiner=combiner, tile_e=tile_e,
+            tile_r=tile_r, n_windows=n_windows,
+            window_written=jnp.asarray(st["window_written"][s]),
+            num_segments=n_segments, interpret=True))
+        want.append(np.asarray(fold(jnp.asarray(vals[:, s]))))
+    return vals, np.stack(want, axis=1)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 17])
+@pytest.mark.parametrize("combiner,dtype", [("min", np.int32),
+                                            ("max", np.float32),
+                                            ("add", np.float32)])
+@pytest.mark.parametrize("name", list(WORK_LAYOUTS))
+def test_work_items_fold_matches_pallas(name, combiner, dtype, batch):
+    """Folding each work item's lanes with the plain version and then
+    combining the split windows' partials equals the Pallas kernel."""
+    vals, want = _pallas_windows(name, combiner, dtype)
+    st = _work_layout(name)
+    _, n_segments, tile_e, tile_r, _ = WORK_LAYOUTS[name]
+    items = work_list(st["tile_start"])
+    assert (items[:, 7] > 1).any()  # a window is cut into several items
+    got = _fold_by_items(items, torch.from_numpy(st["tile_start"]),
+                         torch.from_numpy(st["rel"]),
+                         torch.from_numpy(vals[:batch]), combiner, tile_e,
+                         tile_r, n_segments)
+    _assert_match(got, want[:batch], combiner, dtype)
+    # The wrapper's plain version agrees on the same stack.
+    layout = StackedLayout(torch.from_numpy(st["tile_start"]),
+                           torch.from_numpy(st["rel"]), tile_e, tile_r,
+                           n_segments)
+    plain = ops.segment_combine_stacked(torch.from_numpy(vals[:batch]),
+                                        layout, combiner)
+    _assert_match(plain, want[:batch], combiner, dtype)

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --kernels  # phases 1-4, 7-9 and 12 only
+    python3 chip_smoke.py --seed 3   # the service phases' roots (default 0)
 
 Phases, in order; any failure exits non-zero:
   1. device : the card's name, the device count, nvidia-smi's name and
@@ -50,6 +51,29 @@ Phases, in order; any failure exits non-zero:
  11. shard profile: phase 6 for each exchange.
  12. shard timing: K2 at the two full-width stacks, as in phase 7, with
               the launches of phase 10's path.
+ 13. service: GraphQueryService(max_batch=8) on the card over the same
+              graph (published to its store, warmed for bfs and sssp);
+              64 BFS and 8 SSSP roots drawn from --seed, K1's launch count
+              set to 0 just before and read just after; every answer
+              against phase 5's engine (states, supersteps, messages,
+              comm), every BFS tree by graph500's rules, plan_traces flat
+              after warm; qps and latency percentiles from
+              stats_snapshot(), peak device memory.
+ 14. continuous: scheduling="continuous", slots=8, on the same engines
+              (one plan cache): the 64 BFS roots, then a burst of 8
+              priority-1 deadline queries that parks lanes; every answer
+              against the engine, parks and restores above 0, plan_traces
+              flat.
+ 15. spill : the store spills the graph (its engines offload to pinned
+              host copies); a query dispatched while spilled still runs
+              K1 on the card; the next query refaults (upload); the
+              answers before, while and after are identical.
+ 16. gravf : Engine(mode="gravf") BFS from one root against phase 5's
+              gravfm run; unicast over filtered-broadcast wire words
+              beside the average degree; peak device memory.
+ 17. service profile: torch.profiler over one bucketed batch of 8 BFS and
+              8 BFS through the continuous service: wall, device busy
+              time, idle share, busiest kernels.
 Then one JSON line with both kernels' numbers, the nvidia-smi line, and
 the result line {"ok": true, "device": {...}}.
 """
@@ -70,6 +94,8 @@ SCALE, EDGE_FACTOR, GRAPH_SEED, PARTS = 20, 16, 7, 4
 TILE_E, TILE_R = 512, 256
 BATCH = 8
 TIMING_ITERS = 50
+GRAPH_ID = f"rmat{SCALE}"
+SERVICE_BFS, SERVICE_SSSP, SERVICE_BURST = 64, 8, 8
 TIMING_ROUNDS = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 PAGERANK_RTOL, PAGERANK_ATOL = 1e-4, 1e-9
@@ -536,8 +562,8 @@ def window_spread(tag: str, tile_start) -> None:
         max=int(tiles.max()))
 
 
-def drive(torch, device, full: bool = True):
-    """Phases 3-12 (``full=False``: only the host, sweep and timing
+def drive(torch, device, full: bool = True, seed: int = 0):
+    """Phases 3-17 (``full=False``: only the host, sweep and timing
     phases). Returns the kernels' records for the JSON line."""
     from repro_torch.core import algorithms as ALG
     from repro_torch.core.engine import Engine
@@ -561,7 +587,7 @@ def drive(torch, device, full: bool = True):
 
     kernel_engine = engine(kernel_engines, "kernel")
     ref_engine = engine(ref_engines, "ref")
-    layout = kernel_engine("bfs")._layout
+    layout = kernel_engine("bfs")._data.layout
     window_spread("engine", layout.tile_start)
 
     max_err = phase_sweep(torch, layout, device)
@@ -575,7 +601,10 @@ def drive(torch, device, full: bool = True):
                                                  ref_engine, roots)
         phase_profile(torch, kernel_engine, int(roots[0]))
     records = phase_timing(torch, layout, device, rows)
-    kernel_engines.clear()
+    # the service phases hold their answers against the bfs and sssp
+    # engines; the rest go now
+    for name in set(kernel_engines) - {"bfs", "sssp"}:
+        del kernel_engines[name]
     ref_engines.clear()
     del layout
     gc.collect()  # an engine and its superstep program form a cycle
@@ -584,7 +613,19 @@ def drive(torch, device, full: bool = True):
           "ms": head["ms"], "plain_ms": head["plain_ms"],
           "bound_ms": head["bound_ms"], "bound_by": "bytes",
           "library_ms": head["library_ms"], "variants": records}
-    return [k1, drive_shard(torch, device, g, pg, roots, engine_runs, full)]
+    k2 = drive_shard(torch, device, g, pg, roots, engine_runs, full)
+    if full:
+        # K1's launches on each path, each counted from 0 (``launches``
+        # stays the main path's), and the service paths' by timing row
+        paths, rows = drive_service(torch, device, g, pg, kernel_engine,
+                                    seed)
+        k1["paths"] = {"main": launches, **paths}
+        for rec in records:
+            rec["service_launches"] = rows.get(
+                (rec["combiner"], rec["dtype"], rec["batch"]), 0)
+    kernel_engines.clear()
+    gc.collect()
+    return [k1, k2]
 
 
 def drive_shard(torch, device, g, pg, roots, engine_runs, full=True):
@@ -836,37 +877,256 @@ def phase_timing_stacked(torch, stacks, device, rows=None):
     return records
 
 
-def phase_profile(torch, kernel_engine, root: int, **label) -> None:
-    """Where a superstep's device time goes: torch.profiler over one BFS
-    run and one PageRank run, the busiest operators by self device time,
-    and the device's busy share of the wall time."""
+def service_answers(torch, svc, asked, **fields):
+    """Submit ``asked`` ((kernel, root, priority, deadline_ms, polls)
+    tuples) through ``svc`` and ``flush`` at the end, with K1's launch
+    count from 0 just before and read just after. The requests up to one
+    with ``polls`` > 0 arrive together (a request's latency runs from
+    its arrival, so later ones do not start their clocks while earlier
+    batches run); ``poll`` then runs ``polls`` times before the next ones
+    arrive. Logs the service's stats_snapshot() numbers; returns the
+    answers, the launches and the snapshot."""
+    from repro_torch.kernels import edge_gather
+    from repro_torch.service import QueryRequest
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    edge_gather.launches = 0
+    t0 = time.perf_counter()
+    futs, arrived = [], []
+    for n, (kernel, root, priority, deadline_ms, polls) in enumerate(asked):
+        arrived.append(QueryRequest(GRAPH_ID, kernel, {"root": int(root)},
+                                    priority=priority,
+                                    deadline_ms=deadline_ms))
+        if polls or n == len(asked) - 1:
+            futs += [svc.submit(req) for req in arrived]
+            arrived = []
+            for _ in range(polls):
+                svc.poll()
+    svc.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = edge_gather.launches
+    answers = [f.result(timeout=0) for f in futs]
+    snap = svc.stats_snapshot()
+    log("service", **fields, queries=len(answers), wall_s=round(wall, 6),
+        qps=snap["qps"], qps_busy=snap["qps_busy"], teps=snap["teps"],
+        latency_p50_ms=snap["latency_p50_ms"],
+        latency_p99_ms=snap["latency_p99_ms"],
+        batches=snap["batches_dispatched"],
+        preemptions=snap["preemptions"], lane_restores=snap["lane_restores"],
+        park_restore_ms=snap["park_restore_ms"], launches=launches,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    if launches == 0:
+        raise AssertionError(f"{fields}: the service path launched no K1")
+    return answers, launches, snap
+
+
+def drive_service(torch, device, g, pg, engine, seed: int) -> dict:
+    """Phases 13-17 over ``engine(name)``, phase 5's kernel engines (the
+    reference answers). Returns K1's launches on each service path, and
+    those of all of them by timing row (``row_launches``)."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core.engine import Engine
+    from repro_torch.kernels import edge_gather
+    from repro_torch.service import GraphQueryService, PlanKey, ServiceStats
+    rng = np.random.default_rng(seed)
+    reached = np.flatnonzero(g.out_degrees() > 0)
+    bfs_roots = rng.choice(reached, size=SERVICE_BFS, replace=False)
+    sssp_roots = rng.choice(reached, size=SERVICE_SSSP, replace=False)
+    burst_roots = rng.choice(reached, size=SERVICE_BURST, replace=False)
+    want = {}
+
+    def reference(name, root):
+        if (name, root) not in want:
+            want[name, root] = engine(name).run(root=int(root))
+        return want[name, root]
+
+    # set-up: publish, engines, warm (traces); each measured service is
+    # a fresh front end with its own stats over this plan cache
+    t0 = time.perf_counter()
+    setup = GraphQueryService(max_batch=BATCH, device=device)
+    version = setup.publish(GRAPH_ID, g)
+    t1 = time.perf_counter()
+    for name in ("bfs", "sssp"):
+        setup.warm(GRAPH_ID, name)
+    warm_cont = GraphQueryService(scheduling="continuous", slots=BATCH,
+                                  plan_cache=setup.plans, stats=ServiceStats())
+    warm_cont.warm(GRAPH_ID, "bfs")
+    traces = setup.plans.sync_trace_counters()
+    log("service", publish_s=round(t1 - t0, 3),
+        warm_s=round(time.perf_counter() - t1, 3), plan_traces=traces,
+        engines=len(setup.plans._engines),
+        device_nbytes=sum(e.device_nbytes
+                          for e in setup.plans._engines.values()))
+
+    def front(**kw):
+        return GraphQueryService(plan_cache=setup.plans,
+                                 stats=ServiceStats(), result_cache_size=0,
+                                 **kw)
+
+    # 13. bucketed
+    asked = ([("bfs", r, 0, 60_000, 0) for r in bfs_roots]
+             + [("sssp", r, 0, 60_000, 0) for r in sssp_roots])
+    answers, bucketed, snap = service_answers(
+        torch, front(max_batch=BATCH), asked, scheduling="bucketed")
+    if snap["plan_traces"] != traces:
+        raise AssertionError(f"bucketed: plan_traces {traces} -> "
+                             f"{snap['plan_traces']}")
+    for (name, root, *_), res in zip(asked, answers):
+        same_result(res, reference(name, root), name)
+        if name == "bfs":
+            validate_bfs(torch, g, res.state["parent"], int(root),
+                         res.supersteps, res.messages, device)
+    # the batches are the submissions in order, BATCH at a time (one
+    # class each): a batch launches K1 its depth x its kernel's combines
+    counted = []
+    for i in range(0, len(asked), BATCH):
+        calls = combines_of(engine(asked[i][0]).kernel)
+        counted.append((calls, BATCH,
+                        max(r.supersteps for r in answers[i:i + BATCH])))
+    if bucketed != sum(len(c) * s for c, _, s in counted):
+        raise AssertionError(f"bucketed: {bucketed} K1 launches for "
+                             f"batches {counted}")
+    log("check", service="bucketed", versus_engine="ok",
+        graph500=f"ok x{SERVICE_BFS}", plan_traces="flat",
+        launches="= batches' supersteps x combines")
+
+    # 14. continuous, with a burst of priority-1 deadline queries that
+    # parks lanes: the 64 roots queued, three supersteps pumped, then the
+    # burst (README "Preemptible lanes")
+    asked = [("bfs", r, 0, 60_000, 0) for r in bfs_roots]
+    asked[-1] = asked[-1][:4] + (3,)
+    asked += [("bfs", r, 1, 25, 0) for r in burst_roots]
+    answers, continuous, snap = service_answers(
+        torch, front(scheduling="continuous", slots=BATCH), asked,
+        scheduling="continuous")
+    if snap["preemptions"] < 1 or snap["lane_restores"] < 1:
+        raise AssertionError(f"continuous: {snap['preemptions']} parks, "
+                             f"{snap['lane_restores']} restores")
+    if snap["plan_traces"] != traces:
+        raise AssertionError(f"continuous: plan_traces {traces} -> "
+                             f"{snap['plan_traces']}")
+    for (name, root, *_), res in zip(asked, answers):
+        same_result(res, reference(name, root), name)
+    log("check", service="continuous", versus_engine="ok",
+        answers=len(answers), parks=snap["preemptions"],
+        restores=snap["lane_restores"], plan_traces="flat")
+
+    # 15. spill and refault through the store
+    svc = front(max_batch=BATCH)
+    root = int(bfs_roots[0])
+    engines = list(setup.plans._engines.values())
+    before = svc.query(GRAPH_ID, "bfs", root=root, deadline_ms=60_000)
+    t0 = time.perf_counter()
+    if not svc.store.evict(GRAPH_ID):
+        raise AssertionError("the store refused to spill the graph")
+    spill_s = time.perf_counter() - t0
+    spilled_bytes = svc.store.snapshot()["spilled_bytes"]
+    if any(e.device_resident for e in engines):
+        raise AssertionError("a spilled graph's engine is still resident")
+    plan = svc.plans.get_plan(PlanKey(GRAPH_ID, "bfs", "gravfm", PARTS, 1,
+                                      version=version))
+    edge_gather.launches = 0
+    during = plan.execute(root=np.int32(root))[0]
+    offloaded = edge_gather.launches
+    if offloaded != during.supersteps:
+        raise AssertionError(f"offloaded dispatch: {offloaded} K1 launches "
+                             f"for {during.supersteps} supersteps")
+    after = svc.query(GRAPH_ID, "bfs", root=root, deadline_ms=60_000)
+    if not all(e.device_resident for e in engines):
+        raise AssertionError("the refault left an engine offloaded")
+    for res in (during, after):
+        same_result(res, before, "bfs")
+    snap = svc.stats_snapshot()
+    if snap["plan_traces"] != traces:
+        raise AssertionError("spill/refault traced anew")
+    log("spill", spill_s=round(spill_s, 6),
+        spilled_bytes=spilled_bytes,
+        offloaded_launches=offloaded,
+        refault_upload_ms=snap["store_refault_upload_ms"],
+        faults=snap["store_faults"], resident="False->True",
+        versus_resident="ok")
+
+    # 16. mode="gravf", against phase 5's gravfm run
+    root = int(bfs_roots[1])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gravf = Engine(ALG.bfs(), pg, mode="gravf", device=device)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gravf.run(root=root)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fm = reference("bfs", root)
+    if (res.supersteps, res.messages) != (fm.supersteps, fm.messages):
+        raise AssertionError("gravf supersteps/messages differ from gravfm")
+    for k in fm.state:
+        if not np.array_equal(res.state[k], fm.state[k]):
+            raise AssertionError(f"gravf state[{k!r}] differs from gravfm")
+    log("gravf", root=root, supersteps=res.supersteps,
+        messages=res.messages, build_s=round(build_s, 3),
+        wall_s=round(wall, 6), device_nbytes=gravf.device_nbytes,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        unicast_words=res.comm["unicast_words"],
+        bcast_filtered_words=res.comm["bcast_filtered_words"],
+        unicast_over_filtered=(res.comm["unicast_words"]
+                               / res.comm["bcast_filtered_words"]),
+        average_degree=g.num_edges / g.num_vertices, versus_gravfm="ok")
+    del gravf
+
+    # 17. where a service batch's time goes
+    batch = [("bfs", r, 0, 60_000, 0) for r in bfs_roots[:BATCH]]
+    for scheduling, kw in (("bucketed", {"max_batch": BATCH}),
+                           ("continuous", {"scheduling": "continuous",
+                                           "slots": BATCH})):
+        svc = front(**kw)
+        profiled(torch, lambda: service_answers(
+            torch, svc, batch, scheduling=scheduling, profiled=True),
+            service=scheduling, queries=BATCH)
+    # a continuous step launches K1 once (BFS), at the slot width
+    counted += [(combines_of(engine("bfs").kernel), BATCH, continuous),
+                (combines_of(engine("bfs").kernel), 1, offloaded)]
+    return {"service_bucketed": bucketed, "service_continuous": continuous,
+            "offloaded": offloaded}, row_launches(counted)
+
+
+def profiled(torch, fn, **label):
+    """Run ``fn`` once under torch.profiler and log its wall time, the
+    device's busy time and idle share over that wall, its launches and
+    the busiest kernels by self device time. Returns ``fn``'s result."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side events only (the kernels and copies themselves): the
+    # operators' own device totals would count each kernel twice.
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    log("profile", **label, wall_s=round(wall, 6),
+        device_busy_s=round(busy, 6), idle_share=round(1 - busy / wall, 4),
+        device_launches=sum(e.count for e in kernels))
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        log("profile", **label, kernel=repr(e.key[:100]), calls=e.count,
+            self_device_ms=round(dev_us(e) / 1e3, 4))
+    return res
+
+
+def phase_profile(torch, kernel_engine, root: int, **label) -> None:
+    """Where a superstep's device time goes: one BFS run and one PageRank
+    run through ``profiled``."""
     for name, kwargs in (("bfs", {"root": root}), ("pagerank", {})):
         eng = kernel_engine(name)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = eng.run(**kwargs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # Device-side events only (the kernels and copies themselves): the
-        # operators' own device totals would count each kernel twice.
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-        busy = sum(dev_us(e) for e in kernels) / 1e6
-        log("profile", **label, algorithm=name, supersteps=res.supersteps,
-            wall_s=round(wall, 6), device_busy_s=round(busy, 6),
-            idle_share=round(1 - busy / wall, 4),
-            device_launches=sum(e.count for e in kernels))
-        for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-            log("profile", **label, algorithm=name,
-                kernel=repr(e.key[:100]), calls=e.count,
-                self_device_ms=round(dev_us(e) / 1e3, 4))
+        profiled(torch, lambda: eng.run(**kwargs), **label, algorithm=name)
 
 
 def main() -> int:
@@ -884,8 +1144,10 @@ def main() -> int:
         nvidia_smi=repr(smi), torch=torch.__version__,
         cuda=torch.version.cuda)
     phase_build()
-    full = "--kernels" not in sys.argv[1:]
-    records = drive(torch, torch.device("cuda"), full)
+    args = sys.argv[1:]
+    full = "--kernels" not in args
+    seed = int(args[args.index("--seed") + 1]) if "--seed" in args else 0
+    records = drive(torch, torch.device("cuda"), full, seed)
     print(json.dumps({"kernels": records}), flush=True)
     if not full:
         return 0

@@ -1,23 +1,36 @@
 """The GraVF-M superstep engine on one device, in PyTorch (twin of
-``repro.core.engine``'s ``Engine(mode="gravfm")``).
+``repro.core.engine``), in both of the paper's architectures:
 
-apply emits ≤1 update per vertex; the per-shard update arrays are
-broadcast (a gather over ``src_slot``); scatter runs at the RECEIVER
-against its destination-partitioned edge list, and the messages are
-folded per destination by the segment-combine kernel. The engine is a
-global-array program with an explicit leading shard axis ``P`` (all
-shards on one device, as the JAX engine runs them on one device) and a
-leading query axis ``B`` (one for :meth:`Engine.run`, B for
-:meth:`Engine.run_batch`).
+  mode="gravfm"  — apply emits ≤1 update per vertex; the per-shard update
+                   arrays are broadcast (a gather over ``src_slot``);
+                   scatter runs at the RECEIVER against its
+                   destination-partitioned edge list, and the messages are
+                   folded per destination by the segment-combine kernel.
+  mode="gravf"   — the baseline: scatter runs at the SOURCE shard and the
+                   per-edge messages are exchanged shard to shard (an
+                   axis transpose of the (P, P, E_pair) pair arrays).
+
+The engine is a global-array program with an explicit leading shard axis
+``P`` (all shards on one device, as the JAX engine runs them on one
+device) and a leading query axis ``B`` (one for :meth:`Engine.run`, B for
+:meth:`Engine.run_batch`, W lanes for a :class:`LaneStepper`).
 
 ``backend="kernel"`` lays the edges out into kernel lanes and combines
 through :func:`repro_torch.kernels.ops.segment_combine_layout` (the CUDA
 kernel on the card, its plain version on the CPU); ``backend="ref"``
 combines with the ``scatter_reduce_`` oracle over the unpadded CSC.
+
+The graph data can be demoted to host copies (:meth:`Engine.offload`,
+the graph store's spill tier) and promoted back (:meth:`Engine.upload`);
+an offloaded engine stages its data to its device for each call, so it
+never computes anywhere else. :attr:`Engine.traces` counts the first run
+of each program at each shape, where JAX counts compilations.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -26,9 +39,10 @@ import torch
 from ..convert import state_to_numpy
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from ..kernels.layout import DeviceLayout
 from .gas import GasKernel
 from .partition import PartitionedGraph
-from .stepper import SuperstepProgram
+from .stepper import LaneStepper, SuperstepProgram, tree_map, tree_nbytes
 
 __all__ = ["Engine", "EngineResult", "batch_size", "collect",
            "query_tensors", "resolve_device"]
@@ -49,6 +63,22 @@ class _GravfmData(NamedTuple):
     lane_remote: torch.Tensor    # (L,) bool: src shard != dst shard
     seg: torch.Tensor            # (L,) int64 segment ids clipped to S
     seg_take: torch.Tensor       # (L,) int64 segment ids clipped to S-1
+    layout: Optional[DeviceLayout]  # the kernel's layout (backend="kernel")
+
+
+class _GravfData(NamedTuple):
+    vert_gid: torch.Tensor       # (P, Vm) int32
+    vert_valid: torch.Tensor     # (P, Vm) bool
+    out_deg: torch.Tensor        # (P, Vm) int32
+    flt_cnt: torch.Tensor        # (P, Vm) int32
+    pair_src_slot: torch.Tensor  # (P*P*E2,) int64 src p*Vm + local (gather)
+    pair_src_gid: torch.Tensor   # (P, P, E2) int32
+    pair_src_outdeg: torch.Tensor  # (P, P, E2) int32
+    pair_w: torch.Tensor         # (P, P, E2) f32
+    pair_valid: torch.Tensor     # (P, P, E2) bool
+    pair_cross: torch.Tensor     # (P, P, 1) bool: src shard != dst shard
+    recv_seg: torch.Tensor       # (P*P*E2,) int64 receiver-order segments
+    recv_seg_take: torch.Tensor  # the same, clipped to S-1
 
 
 @dataclasses.dataclass
@@ -84,18 +114,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Engine:
-    """Runs one (kernel, graph) pair through the GraVF-M superstep loop."""
+    """Runs one (kernel, graph, mode) triple through the GraVF-M superstep
+    loop."""
 
     def __init__(self, kernel: GasKernel, pg: PartitionedGraph, *,
                  mode: str = "gravfm", backend: str = "kernel",
                  tile_e: int = 512, tile_r: int = 256,
                  params: Optional[Dict[str, Any]] = None, device=None):
-        if mode == "gravf":
-            raise NotImplementedError(
-                "mode='gravf' is not ported yet (ROADMAP §1 item 4, "
-                "'mode=\"gravf\"')")
-        if mode != "gravfm":
-            raise ValueError(f"unknown mode {mode!r}")
+        if mode not in ("gravf", "gravfm"):
+            raise ValueError(f"mode must be 'gravfm' or 'gravf', "
+                             f"got {mode!r}")
         if backend not in ("kernel", "ref"):
             raise ValueError(f"backend must be 'kernel' or 'ref', "
                              f"got {backend!r}")
@@ -109,6 +137,7 @@ class Engine:
 
         P, Vm = pg.num_parts, pg.v_max
         self._P, self._Vm = P, Vm
+        self._num_segments = P * (Vm + 1)
         # remote-shard neighbor count per vertex (paper's filter bitmap)
         flt = pg.nbr_filter.copy()
         flt[np.arange(pg.num_vertices), pg.part_of] = False
@@ -116,46 +145,57 @@ class Engine:
         flt_cnt = np.zeros((P, Vm), np.int32)
         flt_cnt[pg.part_of, pg.local_of] = flt_cnt_g
 
-        self._data = self._build_gravfm(flt_cnt, tile_e, tile_r)
+        if mode == "gravfm":
+            self._data = self._build_gravfm(flt_cnt, tile_e, tile_r)
+        else:
+            self._data = self._build_gravf(flt_cnt)
+        # Trace accounting: one count the first time each program runs at
+        # each shape (run per query-argument set, run_batch per batch size,
+        # each stepper program per width). The service's plan cache holds
+        # steady-state serving to zero new traces against it.
+        self.traces = 0
+        self._traced: set = set()
+        self._trace_lock = threading.Lock()
+        self._device_resident = True
         self._prog = self._make_program()
+        self._steppers: Dict[int, LaneStepper] = {}
 
     # ------------------------------------------------------------------
+    def _tensor(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=self.device)
+
     def _build_gravfm(self, flt_cnt, tile_e, tile_r) -> _GravfmData:
         pg, P, Vm = self.pg, self._P, self._Vm
-        S = P * (Vm + 1)
+        S = self._num_segments
         seg_flat = (np.arange(P, dtype=np.int64)[:, None] * (Vm + 1)
                     + pg.in_dst_local).reshape(-1)
         valid_flat = pg.in_valid.reshape(-1)
         # Padding edges already carry dst_local == Vm -> their segment is the
         # shard's discard bin; the array stays sorted.
+        layout = None
         if self.backend == "kernel":
-            layout = kops.build_layout(seg_flat, S, tile_e=tile_e,
-                                       tile_r=tile_r)
-            self._layout = layout.to(self.device)
-            place = layout.place
+            host_layout = kops.build_layout(seg_flat, S, tile_e=tile_e,
+                                            tile_r=tile_r)
+            layout = host_layout.to(self.device)
+            place = host_layout.place
             src_slot = place(pg.in_src_slot.reshape(-1), 0)
             src_gid = place(pg.in_src_gid.reshape(-1), 0)
             src_outdeg = place(pg.in_src_outdeg.reshape(-1), 1)
             w = place(pg.in_w.reshape(-1), 0.0)
-            lane_valid = place(valid_flat, False) & layout.lane_valid
+            lane_valid = place(valid_flat, False) & host_layout.lane_valid
             seg = place(seg_flat, S)
         else:
-            self._layout = None
             src_slot = pg.in_src_slot.reshape(-1)
             src_gid = pg.in_src_gid.reshape(-1)
             src_outdeg = pg.in_src_outdeg.reshape(-1)
             w = pg.in_w.reshape(-1)
             lane_valid = valid_flat
             seg = seg_flat
-        self._num_segments = S
         # src shard of each lane vs owning shard of its segment
         lane_remote = (src_slot // Vm != seg // (Vm + 1)) & lane_valid
         seg = np.minimum(seg, S)
-
-        def t(a, dtype):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                   device=self.device)
-
+        t = self._tensor
         return _GravfmData(
             vert_gid=t(pg.vert_gid, torch.int32),
             vert_valid=t(pg.vert_valid, torch.bool),
@@ -169,11 +209,40 @@ class Engine:
             lane_remote=t(lane_remote, torch.bool),
             seg=t(seg, torch.int64),
             seg_take=t(np.minimum(seg, S - 1), torch.int64),
+            layout=layout,
+        )
+
+    def _build_gravf(self, flt_cnt) -> _GravfData:
+        pg, P, Vm = self.pg, self._P, self._Vm
+        S = self._num_segments
+        # the flat gather index of each pair edge's source update
+        src_slot = (np.arange(P, dtype=np.int64)[:, None, None] * Vm
+                    + pg.pair_src_local)
+        # the unicast exchange is the (src, dst) axis transpose: receiver
+        # q's segments over (q, p, e), padding at dst_local == Vm (its
+        # shard's discard bin)
+        recv_dst = pg.pair_dst_local.swapaxes(0, 1).astype(np.int64)
+        recv_seg = (np.arange(P, dtype=np.int64)[:, None, None] * (Vm + 1)
+                    + recv_dst).reshape(-1)
+        t = self._tensor
+        return _GravfData(
+            vert_gid=t(pg.vert_gid, torch.int32),
+            vert_valid=t(pg.vert_valid, torch.bool),
+            out_deg=t(pg.out_deg, torch.int32),
+            flt_cnt=t(flt_cnt, torch.int32),
+            pair_src_slot=t(src_slot.reshape(-1), torch.int64),
+            pair_src_gid=t(pg.pair_src_gid, torch.int32),
+            pair_src_outdeg=t(pg.pair_src_outdeg, torch.int32),
+            pair_w=t(pg.pair_w, torch.float32),
+            pair_valid=t(pg.pair_valid, torch.bool),
+            pair_cross=t(~np.eye(P, dtype=bool)[:, :, None], torch.bool),
+            recv_seg=t(recv_seg, torch.int64),
+            recv_seg_take=t(np.minimum(recv_seg, S - 1), torch.int64),
         )
 
     def _combine(self, data: _GravfmData, vals, combiner: str):
         if self.backend == "kernel":
-            return kops.segment_combine_layout(vals, self._layout, combiner)
+            return kops.segment_combine_layout(vals, data.layout, combiner)
         return kref.segment_combine(vals, data.seg, self._num_segments,
                                     combiner)
 
@@ -214,6 +283,57 @@ class Engine:
         n_remote = (act & data.lane_remote).sum(dim=1)
         return acc, got, carry, {"n_msgs": n_msgs, "n_remote": n_remote}
 
+    def _deliver_gravf(self, data: _GravfData, payload, active):
+        """Source-side scatter, unicast exchange (paper Fig. 4 left).
+
+        The JAX engine folds this mode with its ``segment_combine`` oracle
+        for every backend, with no Pallas kernel; so does the port, with
+        the ``scatter_reduce_`` oracle on the engine's device (the
+        reference's own design, not a fallback)."""
+        k, P, Vm = self.kernel, self._P, self._Vm
+        B = payload.shape[0]
+        S = self._num_segments
+        shape = (B,) + tuple(data.pair_w.shape)
+        vals = payload.reshape(B, P * Vm).index_select(
+            1, data.pair_src_slot).view(shape)
+        act = active.reshape(B, P * Vm).index_select(
+            1, data.pair_src_slot).view(shape) & data.pair_valid
+        msg = k.scatter(vals, data.pair_w, data.pair_src_gid,
+                        data.pair_src_outdeg)
+        ident = kops.identity_for(k.combiner, k.msg_dtype)
+        masked = torch.where(act, msg, ident)
+
+        # THE unicast exchange: the shard-axis transpose.
+        recv = masked.transpose(1, 2).reshape(B, -1)
+        recv_act = act.transpose(1, 2).reshape(B, -1)
+        acc_full = kref.segment_combine(recv, data.recv_seg, S, k.combiner)
+        acc = acc_full.reshape(B, P, Vm + 1)[:, :, :Vm]
+
+        if k.got_from_identity:
+            got = acc != ident
+        else:
+            got_full = kref.segment_combine(recv_act.to(torch.int32),
+                                            data.recv_seg, S, "max")
+            got = got_full.reshape(B, P, Vm + 1)[:, :, :Vm] > 0
+
+        carry = None
+        if k.carry_dtype is not None:
+            cident = kops.identity_for("min", k.carry_dtype)
+            cvals = k.scatter_carry(vals, data.pair_w, data.pair_src_gid,
+                                    data.pair_src_outdeg)
+            crecv = torch.where(act, cvals, cident).transpose(1, 2).reshape(
+                B, -1)
+            acc_at_edge = acc_full.index_select(1, data.recv_seg_take)
+            winner = recv_act & (recv == acc_at_edge)
+            cmasked = torch.where(winner, crecv, cident)
+            carry_full = kref.segment_combine(cmasked, data.recv_seg, S,
+                                              "min")
+            carry = carry_full.reshape(B, P, Vm + 1)[:, :, :Vm]
+
+        n_msgs = act.flatten(1).sum(dim=1)
+        n_remote = (act & data.pair_cross).flatten(1).sum(dim=1)
+        return acc, got, carry, {"n_msgs": n_msgs, "n_remote": n_remote}
+
     # ------------------------------------------------------------------
     def _make_program(self) -> SuperstepProgram:
         """deliver -> gather -> stats -> apply, with the four stats of the
@@ -221,6 +341,8 @@ class Engine:
         wraps past 2**31 traversed edges); the word counts are float32
         running sums added in the same order, so they agree bit for bit."""
         P, device = self._P, self.device
+        deliver = (self._deliver_gravfm if self.mode == "gravfm"
+                   else self._deliver_gravf)
 
         def init_stats(batch):
             def zeros(dtype):
@@ -246,46 +368,112 @@ class Engine:
                     stats["bcast_filtered_words"] + n_flt.to(torch.float32),
             }
 
-        return SuperstepProgram(self.kernel, self._deliver_gravfm,
+        return SuperstepProgram(self.kernel, deliver,
                                 init_stats=init_stats,
                                 update_stats=update_stats)
 
     # ------------------------------------------------------------------
     @property
+    def device_resident(self) -> bool:
+        """Whether the graph data lives on the engine's device (vs the
+        host copies of the store's spill tier)."""
+        return self._device_resident
+
+    @property
     def device_nbytes(self) -> int:
-        """Bytes of the engine's graph layout on the device."""
-        arrays = list(self._data)
-        if self._layout is not None:
-            arrays += [self._layout.window_id, self._layout.tile_start,
-                       self._layout.rel]
-        return int(sum(a.numel() * a.element_size() for a in arrays))
+        """Bytes of the engine's graph data on the device (the kernel's
+        layout included) — exactly what :meth:`offload` demotes."""
+        return tree_nbytes(self._data)
+
+    def offload(self) -> int:
+        """Demote the graph data to host copies (pinned when the engine
+        runs on the card) — the engine tier of the graph store's host
+        spill. Programs and steppers stay; a dispatch while offloaded
+        stages the data to the device for that call, so it still runs on
+        the device, only slower, until :meth:`upload`. Returns the bytes
+        demoted."""
+        if not self._device_resident:
+            return 0
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+
+        def host(t):
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+            return out.copy_(t)
+        data = tree_map(host, self._data)
+        self._rebind_data(data, resident=False)
+        return tree_nbytes(data)
+
+    def upload(self) -> float:
+        """Promote offloaded graph data back to the device. Shapes and
+        dtypes are unchanged, so nothing is traced anew (the spill/refault
+        contract). Returns the wall seconds the upload took."""
+        if self._device_resident:
+            return 0.0
+        t0 = time.perf_counter()
+        data = tree_map(lambda t: t.to(self.device, non_blocking=True),
+                        self._data)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._rebind_data(data, resident=True)
+        return time.perf_counter() - t0
+
+    def _rebind_data(self, data, *, resident: bool) -> None:
+        self._data = data
+        self._device_resident = resident
+        for st in list(self._steppers.values()):
+            st.bind_data(data)
+
+    def _device_data(self):
+        """The graph data on the engine's device: the resident arrays, or
+        a copy staged for this call while offloaded."""
+        if self._device_resident:
+            return self._data
+        return tree_map(lambda t: t.to(self.device), self._data)
+
+    def _note_trace(self, key) -> None:
+        with self._trace_lock:
+            if key not in self._traced:
+                self._traced.add(key)
+                self.traces += 1
+
+    def _bump_traces(self) -> None:
+        with self._trace_lock:
+            self.traces += 1
 
     @property
     def wire_stat(self) -> str:
-        """The stats entry that counts the words GraVF-M's filtered
-        broadcast puts on the wire, surfaced as ``comm["wire_words"]``."""
-        return "bcast_filtered_words"
+        """Which stats entry counts the words this mode's scheme puts on
+        the wire (filtered broadcast for GraVF-M, per-edge unicast for
+        GraVF), surfaced as ``comm["wire_words"]``."""
+        return ("bcast_filtered_words" if self.mode == "gravfm"
+                else "unicast_words")
+
+    def _result(self, state, superstep, stats, q: int) -> EngineResult:
+        """Query ``q`` of host (numpy) state/superstep/stats arrays with a
+        leading query axis, as an :class:`EngineResult`."""
+        state_q = {kk: np.asarray(v[q]) for kk, v in state.items()}
+        comm = {kk: float(v[q]) for kk, v in stats.items()}
+        comm["scheme"] = ("gravfm_broadcast" if self.mode == "gravfm"
+                          else "gravf_unicast")
+        comm["wire_words"] = comm[self.wire_stat]
+        return EngineResult(
+            state=collect(self.pg, state_q),
+            supersteps=int(superstep[q]),
+            messages=int(stats["messages"][q]),
+            comm=comm,
+            raw_state=state_q,
+        )
 
     def _run(self, max_supersteps, qkw, batch) -> "list[EngineResult]":
         cap = max_supersteps or self.kernel.max_supersteps or HARD_SUPERSTEP_CAP
-        carry = self._prog.run_loop(self._data, cap, self.params, qkw, batch)
+        carry = self._prog.run_loop(self._device_data(), cap, self.params,
+                                    qkw, batch)
         state = state_to_numpy(carry.state)
         steps = carry.superstep.cpu().numpy()
         stats = state_to_numpy(carry.stats)
-        results = []
-        for q in range(batch):
-            state_q = {kk: v[q, ...] for kk, v in state.items()}
-            comm = {kk: float(v[q]) for kk, v in stats.items()}
-            comm["scheme"] = "gravfm_broadcast"
-            comm["wire_words"] = comm[self.wire_stat]
-            results.append(EngineResult(
-                state=collect(self.pg, state_q),
-                supersteps=int(steps[q]),
-                messages=int(stats["messages"][q]),
-                comm=comm,
-                raw_state=state_q,
-            ))
-        return results
+        return [self._result(state, steps, stats, q) for q in range(batch)]
 
     def run(self, max_supersteps: Optional[int] = None,
             **query_kwargs) -> EngineResult:
@@ -293,6 +481,7 @@ class Engine:
         kernel's defaults in ``init_state``."""
         qkw = query_tensors(self.kernel, query_kwargs, self.device,
                             batch=False)
+        self._note_trace(("run", tuple(sorted(qkw))))
         return self._run(max_supersteps, qkw, 1)[0]
 
     def run_batch(self, max_supersteps: Optional[int] = None,
@@ -303,7 +492,35 @@ class Engine:
         sequential :meth:`run` calls."""
         qkw = query_tensors(self.kernel, query_arrays, self.device,
                             batch=True)
-        return self._run(max_supersteps, qkw, batch_size(qkw))
+        batch = batch_size(qkw)
+        self._note_trace(("run_batch", batch, tuple(sorted(qkw))))
+        return self._run(max_supersteps, qkw, batch)
+
+    # ------------------------------------------------------------------
+    def make_stepper(self, width: int) -> LaneStepper:
+        """A host-drivable ``width``-lane slot array over this engine's
+        superstep program — the step-granular entry point the continuous
+        scheduler drives (admit / one superstep / probe / retire). Lanes
+        run the same batched computation as :meth:`run_batch`, so a lane
+        is bit-identical to a solo :meth:`run` of its query whatever
+        superstep it was spliced in at. Cached per width: each of its
+        programs counts one trace, then slots recycle with no more."""
+        if width < 1:
+            raise ValueError(f"width must be >= 1, got {width}")
+        st = self._steppers.get(width)
+        if st is None:
+            st = LaneStepper(self._prog, self._data, self.params, width,
+                             device=self.device,
+                             trace_hook=self._bump_traces,
+                             wire_stat=self.wire_stat)
+            self._steppers[width] = st
+        return st
+
+    def lane_result(self, carry_host, lane: int) -> EngineResult:
+        """Package one retired lane of a host-fetched stepper carry as an
+        :class:`EngineResult` (same fields as :meth:`run`)."""
+        return self._result(carry_host.state, carry_host.superstep,
+                            carry_host.stats, lane)
 
 
 def query_tensors(kernel: GasKernel, query_kwargs: Dict[str, Any], device,

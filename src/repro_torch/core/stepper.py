@@ -1,5 +1,4 @@
-"""Step-granular superstep core (twin of ``repro.core.stepper``'s
-:class:`SuperstepProgram`).
+"""Step-granular superstep core (twin of ``repro.core.stepper``).
 
 One superstep = deliver (broadcast + receiver-side scatter +
 gather-combine) -> gather -> stats -> next apply, over an explicit
@@ -10,14 +9,38 @@ of the termination bits per superstep, and freezes finished queries with
 :func:`select_lanes` — the explicit form of the freeze ``vmap`` of a
 ``while_loop`` performs — so a batched query is bit-identical to a solo
 run of it.
+
+:class:`LaneStepper` is the host-drivable W-lane handle over the same
+program that the service's continuous scheduler drives (admit / one
+superstep / probe / retire, and the park/restore verbs of a preemptible
+lane); :class:`LaneTable`, :class:`LaneMeta` and :class:`LaneCheckpoint`
+(copied from the JAX package, which keeps them framework-free) hold the
+lane lifecycle on top of it. Where JAX counts a program's compilations at
+trace time, a stepper counts the first run of each of its programs (its
+width is fixed), and each init/admit/step/restore reads the lane-active
+bits, the superstep counters and the wire words to the host in one
+packed read.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional
+import dataclasses
+import time
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
+import numpy as np
 import torch
 
-__all__ = ["StepCarry", "SuperstepProgram", "select_lanes"]
+__all__ = ["StepCarry", "SuperstepProgram", "LaneStepper",
+           "LaneStepperBase", "select_lanes", "tree_map", "tree_nbytes",
+           "LaneMeta", "LaneCheckpoint", "LaneTable", "lane_dtype",
+           "PRIORITY_BOOST_S"]
+
+# One request-priority level is worth this many seconds of deadline
+# urgency. Kept finite (rather than a lexicographic priority dimension)
+# so a parked lane's deadline-aging credit can eventually exceed ANY
+# priority boost — the starvation-freedom guarantee.
+PRIORITY_BOOST_S = 60.0
 
 
 class StepCarry(NamedTuple):
@@ -37,6 +60,30 @@ def _map(fn, *carries):
     if isinstance(first, dict):
         return {k: _map(fn, *(c[k] for c in carries)) for k in first}
     return fn(*carries)
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor of a structure of named tuples, dicts
+    and tensors (an engine's graph data, a layout, a carry); everything
+    else (sizes, None) is kept as it is."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, x) for x in tree))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor of such a structure."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, tuple):
+        return 0
+    return int(sum(tree_nbytes(x) for x in tree))
 
 
 def select_lanes(mask: torch.Tensor, new, old):
@@ -144,3 +191,519 @@ class SuperstepProgram:
             if not bool(live.any()):
                 return carry
             carry = select_lanes(live, self.step(data, carry), carry)
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a host timing boundary)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class LaneStepperBase:
+    """Host-side plumbing of a lane stepper (twin of the JAX
+    ``LaneStepperBase``): the (carry, lane_active, supersteps) return
+    contract, the query-array upload, the host fetches, and the first-run
+    trace accounting. A subclass builds the programs ``_init``,
+    ``_admit``, ``_step``, ``_probe``, ``_fetch_lane``, ``_restore`` and
+    the profiled phase programs ``_deliver_p``, ``_combine_p`` and
+    ``_apply_p`` with :meth:`_program`.
+
+    ``bind_data`` swaps the graph data the programs run over (the
+    engine's offload/upload). Data that is not on the stepper's device
+    (an offloaded engine's host copies) is staged to the device for each
+    call: an offloaded stepper still computes on its device."""
+
+    # cumulative wire words (across all lanes) as of the last dispatch;
+    # LaneTable.step turns consecutive values into per-superstep deltas
+    # for the trace bus
+    last_wire_words: float = 0.0
+
+    # Opt-in phase profiling: when True, ``step`` dispatches the
+    # superstep as separate phase programs with a device synchronize and
+    # a host timing boundary between them and leaves the wall split in
+    # ``last_phases`` ({phase: seconds}); the fused step leaves it None.
+    # The phases run the same ops and the same lane select as the fused
+    # step, so results are bit-identical.
+    profile: bool = False
+    last_phases: Optional[Dict[str, float]] = None
+
+    def __init__(self, data, width: int, device: torch.device, *,
+                 trace_hook: Optional[Callable[[], None]] = None):
+        self._data = data
+        self.width = width
+        self.device = device
+        self._hook = trace_hook or (lambda: None)
+        self._ran: set = set()
+
+    def _program(self, name: str, fn: Callable[..., Any]):
+        """``fn`` that counts one trace (through ``trace_hook``) the first
+        time it runs: the port's counterpart of a jitted program traced
+        once per width."""
+        def call(*args):
+            if name not in self._ran:
+                self._ran.add(name)
+                self._hook()
+            return fn(*args)
+        return call
+
+    def _dev(self):
+        """The graph data on the stepper's device (staged for this call
+        when the engine is offloaded)."""
+        return tree_map(lambda t: t.to(self.device), self._data)
+
+    def _lanes(self, mask: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(mask, bool), device=self.device)
+
+    def _unpack(self, out):
+        """(carry, packed) -> (carry, lane_active (W,) bool, supersteps (W,)
+        int32): ONE device-to-host read of the packed probe."""
+        carry, packed = out
+        host = packed.cpu().numpy()
+        w = self.width
+        if host.shape[0] > 2 * w:
+            self.last_wire_words = float(host[2 * w])
+        return carry, host[:w] > 0, host[w:2 * w].astype(np.int32)
+
+    def _qdev(self, qkw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v),
+                                   device=self.device).view(-1, 1, 1)
+                for k, v in qkw.items()}
+
+    def probe(self, carry: StepCarry):
+        host = self._probe(carry).cpu().numpy()
+        w = self.width
+        return host[:w] > 0, host[w:2 * w].astype(np.int32)
+
+    def fetch(self, carry: StepCarry) -> StepCarry:
+        return _map(lambda a: a.cpu().numpy(), carry)
+
+    def fetch_lane(self, carry: StepCarry, lane: int) -> StepCarry:
+        """Host copy of exactly ONE lane's carry slice (the checkpoint
+        payload): only that lane's bytes cross to the host, not the whole
+        slot array."""
+        return _map(lambda a: a.cpu().numpy(),
+                    self._fetch_lane(carry, int(lane)))
+
+    def restore(self, carry: StepCarry, lane_carry: StepCarry,
+                fresh: np.ndarray):
+        """Splice a checkpointed lane's carry back into ``fresh`` slots of
+        the in-flight slot array — the admit-path select with the parked
+        carry instead of a fresh ``init_carry``, so the lane resumes
+        bit-identically from its parked superstep (state, superstep
+        counter and running stats all survive verbatim)."""
+        lane_dev = _map(lambda a: torch.as_tensor(a, device=self.device),
+                        lane_carry)
+        return self._unpack(self._restore(carry, lane_dev,
+                                          self._lanes(fresh)))
+
+    def bind_data(self, data) -> None:
+        """Swap the graph data the programs run over — the engine's
+        offload/upload across the store's host-spill tier. Shapes and
+        dtypes match the original, so no program runs anew."""
+        self._data = data
+
+
+class LaneStepper(LaneStepperBase):
+    """Host-drivable fixed-width slot array over a SuperstepProgram.
+
+    ``init``/``admit``/``step``/``restore`` return ``(carry, lane_active
+    (W,), supersteps (W,))``: the probe runs in the same call and its
+    lane bits, superstep counters and wire-words sum come back in one
+    packed host read, so the continuous scheduler's steady state costs
+    one read per superstep.
+
+      init(qkw)                -> all W lanes initialized
+      admit(carry, qkw, fresh) -> ``fresh`` lanes re-initialized
+      step(carry, alive)       -> one superstep for ``alive`` lanes,
+                                  everything else frozen
+      probe(carry)             -> host (lane_active (W,), supersteps (W,))
+      fetch(carry)             -> host copy of the whole carry
+    """
+
+    def __init__(self, prog: SuperstepProgram, data, params: Dict[str, Any],
+                 width: int, *, device,
+                 trace_hook: Optional[Callable[[], None]] = None,
+                 wire_stat: Optional[str] = None):
+        super().__init__(data, width, torch.device(device),
+                         trace_hook=trace_hook)
+
+        def probe_of(carry):
+            # lane bits, superstep counters and (when the engine names
+            # its wire stat) the lanes' wire-words sum, packed for one read
+            parts = [prog.alive(carry).to(torch.float64),
+                     carry.superstep.to(torch.float64)]
+            if wire_stat is not None:
+                parts.append(carry.stats[wire_stat].sum().to(
+                    torch.float64).view(1))
+            return torch.cat(parts)
+
+        def init_fn(d, qkw):
+            c = prog.init_carry(d, params, qkw, width)
+            return c, probe_of(c)
+
+        def admit_fn(d, carry, qkw, fresh):
+            new = prog.init_carry(d, params, qkw, width)
+            c = select_lanes(fresh, new, carry)
+            return c, probe_of(c)
+
+        def step_fn(d, carry, alive):
+            c = select_lanes(alive, prog.step(d, carry), carry)
+            return c, probe_of(c)
+
+        # profiled-mode phase programs: the same superstep as step_fn, cut
+        # at the scatter / combine / apply boundaries so the host can time
+        # each
+        def deliver_fn(d, carry):
+            return prog.step_deliver(d, carry)
+
+        def combine_fn(d, carry, delivered):
+            return prog.step_combine(d, carry, delivered)
+
+        def apply_fn(d, carry, mid, alive):
+            return select_lanes(alive, prog.step_apply(d, mid), carry)
+
+        def fetch_lane_fn(carry, lane):
+            return _map(lambda a: a[lane], carry)
+
+        def restore_fn(carry, lane_carry, fresh):
+            new = _map(lambda leaf: leaf.unsqueeze(0).expand(
+                (width,) + tuple(leaf.shape)), lane_carry)
+            c = select_lanes(fresh, new, carry)
+            return c, probe_of(c)
+
+        self._init = self._program("init", init_fn)
+        self._admit = self._program("admit", admit_fn)
+        self._step = self._program("step", step_fn)
+        self._probe = self._program("probe", probe_of)
+        self._fetch_lane = self._program("fetch_lane", fetch_lane_fn)
+        self._restore = self._program("restore", restore_fn)
+        self._deliver_p = self._program("deliver", deliver_fn)
+        self._combine_p = self._program("combine", combine_fn)
+        self._apply_p = self._program("apply", apply_fn)
+
+    def init(self, qkw: Dict[str, np.ndarray]):
+        return self._unpack(self._init(self._dev(), self._qdev(qkw)))
+
+    def admit(self, carry: StepCarry, qkw: Dict[str, np.ndarray],
+              fresh: np.ndarray):
+        return self._unpack(self._admit(self._dev(), carry, self._qdev(qkw),
+                                        self._lanes(fresh)))
+
+    def step(self, carry: StepCarry, alive: np.ndarray):
+        if not self.profile:
+            self.last_phases = None
+            return self._unpack(self._step(self._dev(), carry,
+                                           self._lanes(alive)))
+        return self._profiled_step(carry, alive)
+
+    def _profiled_step(self, carry: StepCarry, alive: np.ndarray):
+        """One superstep as four phase dispatches with a device
+        synchronize and a host timing boundary after each. Same ops and
+        the same select as the fused path (bit-identical results); the
+        extra syncs are the profiling overhead."""
+        d, alive_dev = self._dev(), self._lanes(alive)
+        phases: Dict[str, float] = {}
+        _sync(self.device)
+        t = time.perf_counter()
+        delivered = self._deliver_p(d, carry)
+        _sync(self.device)
+        now = time.perf_counter()
+        phases["scatter"] = now - t
+        t = now
+        mid = self._combine_p(d, carry, delivered)
+        _sync(self.device)
+        now = time.perf_counter()
+        phases["combine"] = now - t
+        t = now
+        new = self._apply_p(d, carry, mid, alive_dev)
+        _sync(self.device)
+        now = time.perf_counter()
+        phases["apply"] = now - t
+        t = now
+        new, act, steps = self._unpack((new, self._probe(new)))
+        phases["probe"] = time.perf_counter() - t
+        self.last_phases = phases
+        return new, act, steps
+
+
+# ---------------------------------------------------------------------------
+# lane lifecycle: LaneTable + checkpoint/restore
+# ---------------------------------------------------------------------------
+
+def lane_dtype(value) -> np.dtype:
+    """Canonical lane-array dtype for a query kwarg (matches the int32 /
+    float32 the kernels run with, so admits never change signature)."""
+    a = np.asarray(value)
+    if a.dtype.kind in "iub":
+        return np.dtype(np.int32)
+    if a.dtype.kind == "f":
+        return np.dtype(np.float32)
+    return a.dtype
+
+
+@dataclasses.dataclass
+class LaneMeta:
+    """Per-lane scheduling metadata. ``payload`` is opaque to the core
+    (the service stores its (request, future) pair there); everything
+    else is what admission, preemption and depth packing decide on.
+
+    ``credit_s`` is the deadline-aging credit a lane accrues while
+    parked: the scheduler subtracts it from ``deadline_s`` when ranking,
+    so a repeatedly preempted query becomes monotonically more urgent
+    and cannot starve (and, once restored, is not the first victim of
+    the next preemption)."""
+
+    payload: Any
+    qkw: Dict[str, Any]
+    tenant: str = "default"
+    priority: int = 0
+    deadline_s: float = float("inf")
+    predicted_depth: float = 0.0
+    credit_s: float = 0.0
+    parks: int = 0
+    seq: int = 0
+    # depth-prediction bucket label ("d<decile>" of the root's degree,
+    # or None): which per-bucket depth EWMA predicted_depth came from —
+    # retirement scores the observation back into the same bucket
+    depth_bucket: Optional[str] = None
+
+    def effective_deadline(self) -> float:
+        """Scalar urgency (smaller = more urgent): the deadline minus
+        the aging credit, with each priority level worth
+        :data:`PRIORITY_BOOST_S` seconds. Priority therefore dominates
+        ordinary deadline spreads, while a long-parked lane's credit
+        grows without bound and eventually outranks any priority."""
+        return (self.deadline_s - self.credit_s
+                - PRIORITY_BOOST_S * float(self.priority))
+
+
+@dataclasses.dataclass
+class LaneCheckpoint:
+    """One parked lane: the host copy of its carry slice plus its
+    metadata. ``restore`` splices the carry back into a free slot and
+    the query resumes bit-identically from ``superstep`` — state,
+    superstep counter and running stats are all part of the carry."""
+
+    carry: StepCarry
+    meta: LaneMeta
+    superstep: int
+    nbytes: int
+
+
+class LaneTable:
+    """First-class lane lifecycle for one stepper's W-wide slot array.
+
+    Owns slot occupancy, the device carry + host probe mirrors
+    (``act``/``steps``), the per-lane kwarg arrays, and the per-lane
+    :class:`LaneMeta`. The scheduler's policy (who gets a slot, who is
+    preempted) stays outside; the mechanics of the four lifecycle verbs
+    live here:
+
+      admit(assignments)    — splice fresh queries into free slots (one
+                              lane-masked device call for all of them)
+      step(alive)           — one superstep for the alive lanes
+      checkpoint(slot)      — fetch ONLY that lane's carry slice to host
+                              and free the slot (zero re-traces; the
+                              preemption "park" half)
+      restore(slot, ckpt)   — splice a parked carry back into a free
+                              slot via the admit-path select; the lane
+                              resumes bit-identically from its parked
+                              superstep
+
+    Freed/parked lanes' stale device carry stays in place until a later
+    admit/restore overwrites it — the lane-masked select never steps an
+    unoccupied lane, so it is inert.
+
+    ``trace`` is an optional duck-typed event bus (anything with an
+    ``emit(kind, **fields)`` method — in practice the service layer's
+    ``TraceBus``; the core stays import-free of the service package).
+    When set, ``step`` emits one ``superstep`` event per dispatch with
+    the lane→query attribution (slot -> meta.seq) of the lanes that
+    actually stepped, so a query span can be reconstructed into its
+    active vs parked intervals.
+    """
+
+    def __init__(self, stepper, width: int, query_params, *,
+                 trace=None, label: Optional[str] = None,
+                 devices: Tuple[str, ...] = ()):
+        self.stepper = stepper
+        self.width = width
+        self.query_params = tuple(query_params)
+        self.trace = trace
+        self.label = label
+        # mesh device attribution for superstep events (shard steppers
+        # dispatch to every device of their 1-D graph mesh; () for
+        # single-device tables keeps those events unchanged)
+        self.devices = tuple(devices)
+        self.meta: List[Optional[LaneMeta]] = [None] * width
+        self.carry = None
+        self.act: Optional[np.ndarray] = None    # (W,) lane-alive probe
+        self.steps: Optional[np.ndarray] = None  # (W,) lane supersteps
+        self._qkw: Optional[Dict[str, np.ndarray]] = None
+
+    # ---------------- occupancy ---------------------------------------
+    @property
+    def occupied(self) -> np.ndarray:
+        return np.array([m is not None for m in self.meta], bool)
+
+    def in_flight(self) -> int:
+        return sum(m is not None for m in self.meta)
+
+    def free_slots(self) -> List[int]:
+        return [i for i, m in enumerate(self.meta) if m is None]
+
+    def lanes_of(self, tenant: str) -> int:
+        return sum(1 for m in self.meta
+                   if m is not None and m.tenant == tenant)
+
+    def active_slots(self) -> List[int]:
+        return [i for i, m in enumerate(self.meta) if m is not None]
+
+    def alive_mask(self, cap: int) -> np.ndarray:
+        return self.occupied & self.act & (self.steps < cap)
+
+    def done_slots(self, cap: int) -> List[int]:
+        """Occupied lanes whose termination mask flipped or that hit the
+        superstep cap — ready to retire."""
+        return [i for i in range(self.width)
+                if self.meta[i] is not None
+                and (not self.act[i] or self.steps[i] >= cap)]
+
+    def lane_nbytes(self) -> int:
+        """Host bytes one lane's checkpoint occupies (every carry leaf's
+        lane axis divides its bytes evenly across the W lanes)."""
+        if self.carry is None:
+            return 0
+        return tree_nbytes(self.carry) // self.width
+
+    def predicted_remaining(self, slot: int, residual: float = 1.0
+                            ) -> float:
+        """Predicted supersteps this lane still needs: its admission-time
+        depth prediction minus observed progress; a lane that outlived
+        its prediction falls back to the class's observed-depth residual
+        (the expected overshoot), floored at one superstep."""
+        m = self.meta[slot]
+        rem = m.predicted_depth - float(self.steps[slot])
+        return rem if rem > 0 else max(float(residual), 1.0)
+
+    # ---------------- lifecycle verbs ---------------------------------
+    def _ensure_qkw(self, meta: LaneMeta) -> None:
+        if self._qkw is None:
+            # lane arrays keyed by the kernel's DECLARED params (not one
+            # request's keys), seeded with this request's values — idle
+            # lanes then hold a valid query, like the bucketed batcher's
+            # padding lanes
+            self._qkw = {p: np.full((self.width,), meta.qkw[p],
+                                    dtype=lane_dtype(meta.qkw[p]))
+                         for p in self.query_params}
+
+    def admit(self, assignments: Dict[int, LaneMeta]) -> None:
+        """Splice fresh queries into the given free slots — one
+        lane-masked ``init_carry`` select for all of them."""
+        if not assignments:
+            return
+        fresh = np.zeros(self.width, bool)
+        # install EVERY meta before anything that can raise: a failure
+        # below (missing declared param, device error) then finds all
+        # affected lanes in the table, so the class-failure path can
+        # resolve their futures instead of stranding them
+        for slot, meta in assignments.items():
+            assert self.meta[slot] is None, f"slot {slot} occupied"
+            self.meta[slot] = meta
+            fresh[slot] = True
+        for slot, meta in assignments.items():
+            self._ensure_qkw(meta)
+            for p in self._qkw:
+                # a missing declared param raises here and fails the
+                # class loudly instead of silently reusing the slot's
+                # previous occupant's value
+                self._qkw[p][slot] = meta.qkw[p]
+        if self.carry is None:
+            self.carry, self.act, self.steps = self.stepper.init(self._qkw)
+        else:
+            self.carry, self.act, self.steps = self.stepper.admit(
+                self.carry, self._qkw, fresh)
+
+    def step(self, alive: np.ndarray) -> None:  # analysis: host
+        if self.trace is None:
+            self.carry, self.act, self.steps = self.stepper.step(
+                self.carry, alive)
+            return
+        # lane->query attribution captured BEFORE the dispatch (a lane
+        # that retires this superstep must still be attributed to it)
+        lanes = {int(i): self.meta[i].seq
+                 for i in np.flatnonzero(alive) if self.meta[i] is not None}
+        w0 = getattr(self.stepper, "last_wire_words", 0.0)
+        t0 = time.perf_counter()
+        self.carry, self.act, self.steps = self.stepper.step(
+            self.carry, alive)
+        # the probe arrays in the return are host numpy, so perf_counter
+        # here bounds the full dispatch+sync, not just the enqueue
+        w1 = getattr(self.stepper, "last_wire_words", 0.0)
+        extra = {}
+        ph = getattr(self.stepper, "last_phases", None)
+        if ph is not None:
+            # profiled mode: the measured scatter/combine/apply/probe
+            # wall split rides the event (Perfetto args pane / L_* term
+            # comparison against perfmodel.phase_projection)
+            extra["phase"] = dict(ph)
+        if self.devices:
+            # per-device attribution: the mesh devices this dispatch
+            # fanned out to (single-device tables omit the column)
+            extra["devices"] = list(self.devices)
+        self.trace.emit("superstep", klass=self.label,
+                        ts=t0, dur_s=time.perf_counter() - t0,
+                        lanes=lanes, n_alive=len(lanes),
+                        words=max(0.0, w1 - w0), **extra)
+
+    def fetch(self) -> StepCarry:
+        return self.stepper.fetch(self.carry)
+
+    def release(self, slot: int) -> LaneMeta:
+        """Free one retired lane's slot; returns its metadata."""
+        meta = self.meta[slot]
+        self.meta[slot] = None
+        return meta
+
+    def checkpoint(self, slot: int) -> LaneCheckpoint:
+        """Park one lane: fetch its carry slice to host and free the
+        slot. The device never sees a shape change, so parking
+        re-traces nothing."""
+        meta = self.meta[slot]
+        assert meta is not None, f"slot {slot} is empty"
+        nbytes = self.lane_nbytes()
+        lane = self.stepper.fetch_lane(self.carry, slot)
+        self.meta[slot] = None
+        meta.parks += 1
+        return LaneCheckpoint(carry=lane, meta=meta,
+                              superstep=int(self.steps[slot]),
+                              nbytes=nbytes)
+
+    def restore(self, slot: int, ckpt: LaneCheckpoint) -> None:
+        """Un-park a checkpointed lane into a free slot. The splice goes
+        through the same lane-masked select as ``admit``, so the resumed
+        computation is bit-identical to never having been parked."""
+        assert self.meta[slot] is None, f"slot {slot} occupied"
+        meta = ckpt.meta
+        # meta first (see admit): a failure in the splice below must
+        # leave the lane visible to the class-failure path
+        self.meta[slot] = meta
+        self._ensure_qkw(meta)
+        for p in self._qkw:
+            self._qkw[p][slot] = meta.qkw[p]
+        if self.carry is None:
+            # empty table: materialize a carry first (idle lanes hold a
+            # valid dummy query), then overwrite the restored slot
+            self.carry, self.act, self.steps = self.stepper.init(self._qkw)
+        fresh = np.zeros(self.width, bool)
+        fresh[slot] = True
+        self.carry, self.act, self.steps = self.stepper.restore(
+            self.carry, ckpt.carry, fresh)
+
+    def clear(self) -> List[LaneMeta]:
+        """Drop every lane (class failure path); returns the metadata of
+        the lanes that were occupied."""
+        out = [m for m in self.meta if m is not None]
+        self.meta = [None] * self.width
+        self.carry = self.act = self.steps = None
+        return out

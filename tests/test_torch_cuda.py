@@ -1,11 +1,15 @@
 """The port on the card: the CUDA segment-combine kernels (K1, and K2 over
-stacked per-shard layouts) against their plain versions, and the engines'
-kernel paths against their oracle paths.
+stacked per-shard layouts) against their plain versions, the engines'
+kernel paths against their oracle paths, and the query service on the
+card: its answers, an offloaded engine's dispatch (still K1 on the card)
+and bucketed and continuous dispatch on one engine at the same time.
 
 Marked ``gpu``; each test decides inside itself whether there is a card
 and skips without one. The file imports no JAX, so it runs on a machine
 that has only PyTorch: ``python -m pytest -m gpu tests/test_torch_cuda.py``.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +24,7 @@ from repro_torch.kernels import edge_gather, ops
 from repro_torch.kernels.layout import (WORK_TILES, StackedLayout,
                                        build_layout, stack_layouts,
                                        stacked_layout)
+from repro_torch.service import GraphQueryService, QueryRequest
 
 # The tensors here are tiny: one CPU thread keeps torch's thread pool off
 # the cores that parallel test workers share.
@@ -236,3 +241,130 @@ def test_cuda_shard_engine_matches_ref(exchange, name):
                                        rtol=1e-4, atol=1e-9)
         else:
             np.testing.assert_array_equal(got.state[k], want.state[k])
+
+
+def _service_graph():
+    g = TG.rmat(9, 8, seed=5, weighted=True).symmetrized()
+    return g, TPT.partition_graph(g, 4, pad_multiple=16)
+
+
+def _same_as(got, want, name):
+    assert (got.supersteps, got.messages, got.comm) == (
+        want.supersteps, want.messages, want.comm)
+    for k in want.state:
+        if name == "pagerank" and k == "score":
+            np.testing.assert_allclose(got.state[k], want.state[k],
+                                       rtol=1e-4, atol=1e-9)
+        else:
+            np.testing.assert_array_equal(got.state[k], want.state[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheduling", ["bucketed", "continuous"])
+def test_cuda_service_matches_engine(scheduling):
+    """The service on the card (its default device and backend) answers
+    every query class as the oracle engine does, through K1."""
+    _need_card()
+    g, pg = _service_graph()
+    svc = GraphQueryService(max_batch=8, slots=4, scheduling=scheduling,
+                            result_cache_size=0)
+    assert svc.device.type == "cuda" and svc.backend == "kernel"
+    svc.add_graph("g", g, pad_multiple=16)
+    for k in ("bfs", "sssp"):
+        svc.warm("g", k)
+    for k in ("wcc", "pagerank", "degree"):
+        svc.warm("g", k, batch_sizes=[1])
+    traces = svc.stats_snapshot()["plan_traces"]
+    asked = [(k, {"root": r}) for k in ("bfs", "sssp")
+             for r in range(0, g.num_vertices, 47)]
+    asked += [(k, {}) for k in ("wcc", "pagerank", "degree")]
+    before = edge_gather.launches
+    futs = [svc.submit(QueryRequest("g", k, kw, deadline_ms=60_000))
+            for k, kw in asked]
+    svc.flush()
+    assert edge_gather.launches > before
+    ref = {k: Engine(TA.ALGORITHMS[k](), pg, backend="ref", device="cpu")
+           for k in ("bfs", "sssp", "wcc", "pagerank", "degree")}
+    for (k, kw), f in zip(asked, futs):
+        _same_as(f.result(timeout=0), ref[k].run(**kw), k)
+    assert svc.stats_snapshot()["plan_traces"] == traces
+
+
+@pytest.mark.gpu
+def test_cuda_offloaded_engine_launches_kernel():
+    """An offloaded engine stages its host copies to the card for each
+    call: K1 still runs there, for run and for a stepper."""
+    _need_card()
+    _, pg = _service_graph()
+    eng = Engine(TA.sssp(), pg)
+    want = eng.run(root=3)
+    st = eng.make_stepper(2)
+    carry, act, _ = st.init({"root": np.array([3, 9], np.int32)})
+    assert eng.offload() == eng.device_nbytes > 0
+    assert not eng.device_resident
+    assert eng._data.vert_gid.device.type == "cpu"
+    before = edge_gather.launches
+    got = eng.run(root=3)
+    assert edge_gather.launches - before == 2 * got.supersteps
+    _same_as(got, want, "sssp")
+    before = edge_gather.launches
+    carry, act, _ = st.step(carry, act)
+    assert edge_gather.launches - before == 2
+    assert carry.active.device.type == "cuda"
+    assert eng.upload() > 0.0 and eng.device_resident
+    assert eng._data.vert_gid.device.type == "cuda"
+    while act.any():
+        carry, act, _ = st.step(carry, act)
+    _same_as(eng.lane_result(st.fetch(carry), 0), want, "sssp")
+
+
+@pytest.mark.gpu
+def test_cuda_bucketed_and_continuous_share_one_engine():
+    """A bucketed service and a continuous one over one plan cache share
+    one engine (and its kernel layout); driven from two threads at once,
+    both answer as the oracle engine does."""
+    _need_card()
+    g, pg = _service_graph()
+    bsvc = GraphQueryService(max_batch=8, result_cache_size=0)
+    bsvc.add_graph("g", g, pad_multiple=16)
+    csvc = GraphQueryService(scheduling="continuous", slots=4,
+                             plan_cache=bsvc.plans, result_cache_size=0)
+    bsvc.warm("g", "bfs")
+    csvc.warm("g", "bfs")
+    assert len(bsvc.plans._engines) == 1
+    roots = list(range(0, g.num_vertices, 13))
+    out, errors = {}, []
+
+    def drive(name, svc):
+        try:
+            futs = [svc.submit(QueryRequest("g", "bfs", {"root": r},
+                                            deadline_ms=60_000))
+                    for r in roots]
+            svc.flush()
+            out[name] = [f.result(timeout=60) for f in futs]
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=drive, args=("bucketed", bsvc)),
+               threading.Thread(target=drive, args=("continuous", csvc))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    ref = Engine(TA.bfs(), pg, backend="ref", device="cpu")
+    for r, b, c in zip(roots, out["bucketed"], out["continuous"]):
+        want = ref.run(root=r)
+        _same_as(b, want, "bfs")
+        _same_as(c, want, "bfs")
+
+
+@pytest.mark.gpu
+def test_cuda_service_needs_the_card_or_cpu(monkeypatch):
+    _need_card()
+    assert GraphQueryService().device.type == "cuda"
+    assert GraphQueryService(device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphQueryService()

@@ -125,8 +125,9 @@ def test_query_kwargs_and_modes(graphs):
         eng.run_batch(root=np.zeros((2, 2), np.int32))
     with pytest.raises(ValueError):
         Engine(TA.wcc(), tpg, device="cpu").run_batch(root=np.arange(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(TA.bfs(), tpg, mode="gravf", device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        Engine(TA.bfs(), tpg, mode="graph", device="cpu")
+    assert Engine(TA.bfs(), tpg, mode="gravf", device="cpu").mode == "gravf"
     assert eng.device_nbytes > 0
 
 

@@ -41,16 +41,27 @@ Phases, in order; any failure exits non-zero:
               in phase 4, over small stacks (an empty shard, windows that
               own no tile, hub rows, a window cut into many work items)
               and the two full-width stacks, at phase 4's batch sizes.
- 10. shard  : ShardEngine(mesh=LocalMesh(4, cuda)) for the allgather,
-              unicast and combined exchanges (BFS run and the 8-root
-              run_batch, WCC, PageRank 30, SSSP), K2's launch count set to
-              0 just before and read just after; each run against the
-              backend="ref" shard engine on the same exchange and against
-              phase 5's one-device engine, BFS by graph500's rules; the
-              wire words of each exchange beside the average degree.
- 11. shard profile: phase 6 for each exchange.
+ 10. shard  : ShardEngine(mesh=LocalMesh(4, cuda)) for the five exchanges
+              (allgather, ring, frontier, unicast, combined): BFS run, the
+              8-root run_batch and SSSP in both schedules (overlap=False
+              and True), WCC and PageRank 30 in the synchronous one, K2's
+              launch count set to 0 just before and read just after, each
+              run's launches = supersteps x its combines; unicast and
+              combined PageRank must refuse overlap=True (ValueError);
+              each run against the backend="ref" shard engine on the same
+              exchange and against phase 5's one-device engine, BFS by
+              graph500's rules; the wire words of each exchange (frontier
+              beside allgather) and the average degree.
+ 11. shard profile: phase 6 for each exchange, and one overlapped
+              combined BFS.
+ 18. shard stepper (runs after 11): make_stepper(8) for BFS over the
+              combined and frontier exchanges and the overlapped combined
+              schedule: 12 roots through 8 lanes, lanes admitted
+              mid-flight, one parked and restored; run once to warm up,
+              then with K2's count from 0: launches = supersteps x
+              combines, traces flat, every lane equal to its solo run.
  12. shard timing: K2 at the two full-width stacks, as in phase 7, with
-              the launches of phase 10's path.
+              the launches of phase 10's path and of phase 18's.
  13. service: GraphQueryService(max_batch=8) on the card over the same
               graph (published to its store, warmed for bfs and sssp);
               64 BFS and 8 SSSP roots drawn from --seed, K1's launch count
@@ -74,8 +85,18 @@ Phases, in order; any failure exits non-zero:
  17. service profile: torch.profiler over one bucketed batch of 8 BFS and
               8 BFS through the continuous service: wall, device busy
               time, idle share, busiest kernels.
-Then one JSON line with both kernels' numbers, the nvidia-smi line, and
-the result line {"ok": true, "device": {...}}.
+ 19. shard service: the shard class exchange="combined" (four shards of
+              the card) over phase 13's plan cache and requests: bucketed,
+              continuous with phase 14's burst (parks and restores above
+              0), bucketed with overlap toggled per request, then a spill
+              with a dispatch while spilled (still K2 on the card) and the
+              refault; K2's count from 0 before each; every answer against
+              phase 5's engine, plan_traces flat after warm-up.
+ 20. shard service profile: torch.profiler over one bucketed batch of 8
+              BFS through the shard class.
+Then one JSON line with both kernels' numbers (each with its launches
+on every path, "paths"), the nvidia-smi line, and the result line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -111,7 +132,9 @@ KERNEL2 = {
     "source": "src/repro_torch/kernels/csrc/segment_combine.cu",
     "replaces": "src/repro/kernels/edge_gather.py:136",
 }
-EXCHANGES = ("allgather", "unicast", "combined")
+EXCHANGES = ("allgather", "ring", "frontier", "unicast", "combined")
+SCHEDULES = (False, True)   # overlap=False, overlap=True
+STEPPER_ROOTS = 12
 # Small stacks for K2's sweep: (edges of each shard, segments, tile_e,
 # tile_r): an empty shard, windows that own no tile, hub rows.
 # The last stack and the last shape put ~17,000 lanes of 32 in one window:
@@ -395,15 +418,17 @@ def dtype_name(dtype) -> str:
     return str(dtype).rsplit(".", 1)[-1]
 
 
-def combines_of(kernel, exchange: str = "allgather"):
+def combines_of(kernel, exchange: str = "allgather", overlap: bool = False):
     """The (combiner, dtype) of each kernel launch a superstep makes: the
     key, `got` unless the kernel derives it from the identity, and the
-    carry; the combined exchange also folds send_act (int32 max) at the
-    source and derives `got` from it. Unicast launches none."""
-    if exchange == "unicast":
+    carry (allgather, frontier and the one-device engine); the combined
+    exchange also folds send_act (int32 max) at the source, except an
+    overlapped schedule whose kernel derives `got` from the identity.
+    The ring and unicast fold with the oracle and launch none."""
+    if exchange in ("ring", "unicast"):
         return []
     calls = [(kernel.combiner, dtype_name(kernel.msg_dtype))]
-    if exchange == "combined":
+    if exchange == "combined" and not overlap:
         calls.append(("max", "int32"))
     elif not kernel.got_from_identity:
         calls.append(("max", "int32"))
@@ -563,7 +588,7 @@ def window_spread(tag: str, tile_start) -> None:
 
 
 def drive(torch, device, full: bool = True, seed: int = 0):
-    """Phases 3-17 (``full=False``: only the host, sweep and timing
+    """Phases 3-20 (``full=False``: only the host, sweep and timing
     phases). Returns the kernels' records for the JSON line."""
     from repro_torch.core import algorithms as ALG
     from repro_torch.core.engine import Engine
@@ -617,11 +642,15 @@ def drive(torch, device, full: bool = True, seed: int = 0):
     if full:
         # K1's launches on each path, each counted from 0 (``launches``
         # stays the main path's), and the service paths' by timing row
-        paths, rows = drive_service(torch, device, g, pg, kernel_engine,
-                                    seed)
+        paths, rows, paths2, rows2 = drive_service(
+            torch, device, g, pg, kernel_engine, seed)
         k1["paths"] = {"main": launches, **paths}
         for rec in records:
             rec["service_launches"] = rows.get(
+                (rec["combiner"], rec["dtype"], rec["batch"]), 0)
+        k2["paths"].update(paths2)
+        for rec in k2["variants"]:
+            rec["service_launches"] = rows2.get(rec["stack"], {}).get(
                 (rec["combiner"], rec["dtype"], rec["batch"]), 0)
     kernel_engines.clear()
     gc.collect()
@@ -629,7 +658,7 @@ def drive(torch, device, full: bool = True, seed: int = 0):
 
 
 def drive_shard(torch, device, g, pg, roots, engine_runs, full=True):
-    """Phases 8-12. Returns K2's record for the JSON line."""
+    """Phases 8-12 and 18. Returns K2's record for the JSON line."""
     from repro_torch.core.engine_shardmap import build_shard_data
     t0 = time.perf_counter()
     data = build_shard_data(pg, tile_e=TILE_E, tile_r=TILE_R)
@@ -639,12 +668,12 @@ def drive_shard(torch, device, g, pg, roots, engine_runs, full=True):
         comb_max=meta.comb_max, comb_tiles=meta.comb_tiles,
         comb_windows=meta.comb_windows, e_pair_max=meta.e_pair_max)
     engine = shard_engines(torch, device, pg, data)
-    stacks = {"csc": engine("allgather", "bfs", "kernel")._csc,
-              "combined": engine("combined", "bfs", "kernel")._comb}
+    stacks = {"csc": engine("allgather", "bfs", "kernel")._data.csc,
+              "combined": engine("combined", "bfs", "kernel")._data.comb}
     for name, stack in stacks.items():
         window_spread(name, stack.tile_start)
     max_err = phase_sweep_stacked(torch, stacks, device)
-    launches, rows = None, None
+    launches, rows, paths = None, None, {}
     if full:
         launches, rows = phase_shard(torch, device, g, engine, roots,
                                      engine_runs)
@@ -652,12 +681,26 @@ def drive_shard(torch, device, g, pg, roots, engine_runs, full=True):
             phase_profile(torch,
                           lambda name: engine(exchange, name, "kernel"),
                           int(roots[0]), exchange=exchange)
+        eng = engine("combined", "bfs", "kernel")
+        profiled(torch, lambda: eng.run(root=int(roots[0]), overlap=True),
+                 exchange="combined", overlap=True, algorithm="bfs")
+        rng = np.random.default_rng(GRAPH_SEED + 1)
+        stepper_roots = rng.choice(np.flatnonzero(g.out_degrees() > 0),
+                                   size=STEPPER_ROOTS, replace=False)
+        stepped, stepper_rows = phase_shard_stepper(torch, engine,
+                                                    stepper_roots)
+        paths = {"shard": launches, "shard_stepper": stepped}
     records = phase_timing_stacked(torch, stacks, device, rows)
+    for rec in records:
+        rec["stepper_launches"] = None if not paths else stepper_rows[
+            rec["stack"]].get((rec["combiner"], rec["dtype"], rec["batch"]),
+                              0)
     head = records[0]  # CSC int32 min at B=1: allgather's BFS/WCC key
     return {**KERNEL2, "launches": launches, "max_abs_err": max_err,
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": "bytes",
-            "library_ms": head["library_ms"], "variants": records}
+            "library_ms": head["library_ms"], "paths": paths,
+            "variants": records}
 
 
 def shard_engines(torch, device, pg, data):
@@ -753,76 +796,188 @@ def same_as_engine(got, want, name: str) -> None:
 
 def phase_shard(torch, device, g, engine, roots, engine_runs) -> int:
     """The shard path: every exchange's runs through the kernel shard
-    engine with K2's launch count from 0; then each run against the
-    backend="ref" shard engine and the one-device engine. Returns the
-    launch count of the whole path and the launches of each stack's
-    timing rows (``row_launches``)."""
+    engine in both schedules (BFS run and run_batch and SSSP overlapped,
+    WCC and PageRank synchronous only; unicast/combined PageRank must
+    refuse overlap=True), with K2's launch count from 0; then each run
+    against the backend="ref" shard engine and the one-device engine, BFS
+    by graph500's rules. Returns the launch count of the whole path and
+    the launches of each stack's timing rows (``row_launches``)."""
     from repro_torch.kernels import edge_gather
     for exchange in EXCHANGES:  # warm-up, untimed
-        engine(exchange, "bfs", "kernel").run(root=int(roots[0]))
+        for overlap in (False, True):
+            engine(exchange, "bfs", "kernel").run(root=int(roots[0]),
+                                                  overlap=overlap)
     torch.cuda.synchronize()
     edge_gather.windows_launches = 0
     results, words = [], {}
-    # Launches of each stack's timing rows: the allgather exchange folds
+    # Launches of each stack's timing rows: allgather and frontier fold
     # over the CSC stack, the combined exchange over the combined stack.
-    counted = {"allgather": [], "unicast": [], "combined": []}
+    counted = {"csc": [], "combined": []}
     for exchange in EXCHANGES:
         for name, entry, kwargs, _ in engine_runs:
             eng = engine(exchange, name, "kernel")
-            before = edge_gather.windows_launches
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = getattr(eng, entry)(**kwargs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launched = edge_gather.windows_launches - before
-            outs = out if isinstance(out, list) else [out]
-            steps = max(r.supersteps for r in outs)
-            messages = sum(r.messages for r in outs)
-            wire = outs[0].comm["wire_words"]
-            words[exchange, name, entry] = wire
-            log("shard", exchange=exchange, algorithm=name, entry=entry,
-                queries=len(outs), supersteps=steps, messages=messages,
-                wire_words=wire, wall_s=round(wall, 6),
-                teps=round(messages / wall), launches=launched,
-                max_memory_allocated=torch.cuda.max_memory_allocated())
-            calls = combines_of(eng.kernel, exchange)
-            if launched != steps * len(calls):
-                raise AssertionError(
-                    f"{exchange} {name} {entry}: {launched} launches for "
-                    f"{steps} supersteps x {calls}")
-            results.append((exchange, name, entry, kwargs, outs))
-            counted[exchange].append((calls, len(outs), steps))
+            for overlap in SCHEDULES:
+                if overlap and name in ("wcc", "pagerank"):
+                    continue
+                before = edge_gather.windows_launches
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = getattr(eng, entry)(overlap=overlap, **kwargs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = edge_gather.windows_launches - before
+                outs = out if isinstance(out, list) else [out]
+                steps = max(r.supersteps for r in outs)
+                messages = sum(r.messages for r in outs)
+                wire = outs[0].comm["wire_words"]
+                words[exchange, overlap, name, entry] = wire
+                log("shard", exchange=exchange, overlap=overlap,
+                    algorithm=name, entry=entry, queries=len(outs),
+                    supersteps=steps, messages=messages, wire_words=wire,
+                    wall_s=round(wall, 6), teps=round(messages / wall),
+                    launches=launched,
+                    max_memory_allocated=torch.cuda.max_memory_allocated())
+                calls = combines_of(eng.kernel, exchange, overlap)
+                if launched != steps * len(calls):
+                    raise AssertionError(
+                        f"{exchange} overlap={overlap} {name} {entry}: "
+                        f"{launched} launches for {steps} supersteps x "
+                        f"{calls}")
+                results.append((exchange, overlap, name, entry, kwargs,
+                                outs))
+                stack = {"allgather": "csc", "frontier": "csc",
+                         "combined": "combined"}.get(exchange)
+                if stack:
+                    counted[stack].append((calls, len(outs), steps))
+            if name == "pagerank" and exchange in ("unicast", "combined"):
+                try:
+                    eng.run(overlap=True)
+                except ValueError:
+                    log("check", exchange=exchange, algorithm=name,
+                        overlap=True, refused="ValueError")
+                else:
+                    raise AssertionError(f"{exchange} PageRank ran "
+                                         "overlap=True")
     total = edge_gather.windows_launches
     log("shard", launches_total=total)
-    rows = {"csc": row_launches(counted["allgather"]),
-            "combined": row_launches(counted["combined"])}
+    rows = {k: row_launches(v) for k, v in counted.items()}
 
     avg_degree = g.num_edges / g.num_vertices
     for name, entry, _, _ in engine_runs:
-        uni = words["unicast", name, entry]
-        comb = words["combined", name, entry]
+        sync = {x: words[x, False, name, entry] for x in EXCHANGES}
         log("shard", algorithm=name, entry=entry,
-            wire_words_allgather=words["allgather", name, entry],
-            wire_words_unicast=uni, wire_words_combined=comb,
-            unicast_over_combined=uni / comb, average_degree=avg_degree)
+            **{f"wire_words_{x}": w for x, w in sync.items()},
+            frontier_over_allgather=sync["frontier"] / sync["allgather"],
+            unicast_over_combined=sync["unicast"] / sync["combined"],
+            average_degree=avg_degree)
+        for x in EXCHANGES:
+            if (x, True, name, entry) in words and \
+                    words[x, True, name, entry] != sync[x]:
+                raise AssertionError(f"{x} {name} {entry}: overlapped "
+                                     "words differ from the synchronous")
 
     by_run = {(name, entry): outs for name, entry, _, outs in engine_runs}
-    for exchange, name, entry, kwargs, outs in results:
-        want = getattr(engine(exchange, name, "ref"), entry)(**kwargs)
-        want = want if isinstance(want, list) else [want]
-        for got, ref, one in zip(outs, want, by_run[name, entry]):
+    ref_runs = {}
+    for exchange, overlap, name, entry, kwargs, outs in results:
+        if (exchange, name, entry) not in ref_runs:
+            want = getattr(engine(exchange, name, "ref"), entry)(**kwargs)
+            ref_runs[exchange, name, entry] = (
+                want if isinstance(want, list) else [want])
+        for got, ref, one in zip(outs, ref_runs[exchange, name, entry],
+                                 by_run[name, entry]):
             same_result(got, ref, name)
             same_as_engine(got, one, name)
         if name == "bfs":
             for r, res in zip(np.atleast_1d(kwargs["root"]), outs):
                 validate_bfs(torch, g, res.state["parent"], int(r),
                              res.supersteps, res.messages, device)
-        log("check", exchange=exchange, algorithm=name, entry=entry,
-            versus_ref="ok", versus_engine="ok",
+        log("check", exchange=exchange, overlap=overlap, algorithm=name,
+            entry=entry, versus_ref="ok", versus_engine="ok",
             graph500="ok" if name == "bfs" else "-")
     return total, rows
+
+
+def phase_shard_stepper(torch, engine, roots):
+    """The shard lane stepper: ``make_stepper(8)`` over BFS for the
+    combined and frontier exchanges and the overlapped combined schedule.
+    The 8 lanes start together, lane 0 is parked after two supersteps and
+    its slot refilled, retired lanes are refilled from a queue, and the
+    parked lane is restored into the first slot free once the queue is
+    empty. The whole schedule runs once to warm up, then again with K2's
+    launch count from 0: the launches must equal the supersteps times the
+    exchange's combines, no program may run anew, and every lane must
+    equal a solo run of its root. Returns the launches and the stacks'
+    timing-row launches."""
+    from repro_torch.core.stepper import LaneMeta, LaneTable
+    from repro_torch.kernels import edge_gather
+    cap = 10_000
+
+    def schedule(st):
+        table = LaneTable(st, BATCH, ("root",))
+        queue = [int(r) for r in roots]
+        first, queue = queue[:BATCH], queue[BATCH:]
+        table.admit({s: LaneMeta(payload=r, qkw={"root": r})
+                     for s, r in enumerate(first)})
+        done, parked, steps = {}, None, 0
+        while table.in_flight() or parked is not None:
+            if steps == 2 and parked is None and not done:
+                parked = table.checkpoint(0)
+                r = queue.pop(0)
+                table.admit({0: LaneMeta(payload=r, qkw={"root": r})})
+            table.step(table.alive_mask(cap))
+            steps += 1
+            finished = table.done_slots(cap)
+            if finished:
+                host = table.fetch()
+                for slot in finished:
+                    r = table.release(slot).payload
+                    done[r] = st.eng.lane_result(host, slot)
+            for slot in table.free_slots():
+                if queue:
+                    r = queue.pop(0)
+                    table.admit({slot: LaneMeta(payload=r,
+                                                qkw={"root": r})})
+                elif parked is not None:
+                    table.restore(slot, parked)
+                    parked = None
+        return done, steps
+
+    total, counted = 0, {"csc": [], "combined": []}
+    for exchange, overlap in (("combined", False), ("frontier", False),
+                              ("combined", True)):
+        eng = engine(exchange, "bfs", "kernel")
+        st = eng.make_stepper(BATCH, overlap=overlap)
+        schedule(st)     # warm-up, untimed
+        traces = eng.traces
+        torch.cuda.synchronize()
+        edge_gather.windows_launches = 0
+        t0 = time.perf_counter()
+        done, steps = schedule(st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = edge_gather.windows_launches
+        calls = combines_of(eng.kernel, exchange, overlap)
+        log("shard_stepper", exchange=exchange, overlap=overlap,
+            width=BATCH, lanes=len(done), supersteps=steps,
+            wall_s=round(wall, 6), launches=launched, parks=1,
+            restores=1, traces_after_warm=eng.traces - traces)
+        if launched != steps * len(calls):
+            raise AssertionError(f"stepper {exchange}: {launched} launches "
+                                 f"for {steps} supersteps x {calls}")
+        if eng.traces != traces:
+            raise AssertionError(f"stepper {exchange}: traced anew")
+        if sorted(done) != sorted(int(r) for r in roots):
+            raise AssertionError(f"stepper {exchange}: lanes lost")
+        for r, res in done.items():
+            same_result(res, eng.run(root=r, overlap=overlap), "bfs")
+        log("check", shard_stepper=exchange, overlap=overlap,
+            versus_solo="ok", traces="flat",
+            launches="= supersteps x combines")
+        total += launched
+        counted["csc" if exchange == "frontier" else "combined"].append(
+            (calls, BATCH, steps))
+    return total, {k: row_launches(v) for k, v in counted.items()}
 
 
 def phase_timing_stacked(torch, stacks, device, rows=None):
@@ -877,26 +1032,30 @@ def phase_timing_stacked(torch, stacks, device, rows=None):
     return records
 
 
-def service_answers(torch, svc, asked, **fields):
-    """Submit ``asked`` ((kernel, root, priority, deadline_ms, polls)
-    tuples) through ``svc`` and ``flush`` at the end, with K1's launch
-    count from 0 just before and read just after. The requests up to one
-    with ``polls`` > 0 arrive together (a request's latency runs from
-    its arrival, so later ones do not start their clocks while earlier
-    batches run); ``poll`` then runs ``polls`` times before the next ones
-    arrive. Logs the service's stats_snapshot() numbers; returns the
-    answers, the launches and the snapshot."""
+def service_answers(torch, svc, asked, counter="launches", **fields):
+    """Submit ``asked`` ((kernel, root, priority, deadline_ms, polls[,
+    overlap]) tuples) through ``svc`` and ``flush`` at the end, with the
+    kernel's launch count (``edge_gather.<counter>``: K1's ``launches``,
+    K2's ``windows_launches``) from 0 just before and read just after.
+    The requests up to one with ``polls`` > 0 arrive together (a
+    request's latency runs from its arrival, so later ones do not start
+    their clocks while earlier batches run); ``poll`` then runs ``polls``
+    times before the next ones arrive. Logs the service's
+    stats_snapshot() numbers; returns the answers, the launches and the
+    snapshot."""
     from repro_torch.kernels import edge_gather
     from repro_torch.service import QueryRequest
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    edge_gather.launches = 0
+    setattr(edge_gather, counter, 0)
     t0 = time.perf_counter()
     futs, arrived = [], []
-    for n, (kernel, root, priority, deadline_ms, polls) in enumerate(asked):
+    for n, (kernel, root, priority, deadline_ms, polls, *ov) in enumerate(
+            asked):
         arrived.append(QueryRequest(GRAPH_ID, kernel, {"root": int(root)},
                                     priority=priority,
-                                    deadline_ms=deadline_ms))
+                                    deadline_ms=deadline_ms,
+                                    overlap=bool(ov and ov[0])))
         if polls or n == len(asked) - 1:
             futs += [svc.submit(req) for req in arrived]
             arrived = []
@@ -905,7 +1064,7 @@ def service_answers(torch, svc, asked, **fields):
     svc.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = edge_gather.launches
+    launches = getattr(edge_gather, counter)
     answers = [f.result(timeout=0) for f in futs]
     snap = svc.stats_snapshot()
     log("service", **fields, queries=len(answers), wall_s=round(wall, 6),
@@ -917,14 +1076,16 @@ def service_answers(torch, svc, asked, **fields):
         park_restore_ms=snap["park_restore_ms"], launches=launches,
         max_memory_allocated=torch.cuda.max_memory_allocated())
     if launches == 0:
-        raise AssertionError(f"{fields}: the service path launched no K1")
+        raise AssertionError(f"{fields}: the service path launched no "
+                             f"kernel ({counter})")
     return answers, launches, snap
 
 
-def drive_service(torch, device, g, pg, engine, seed: int) -> dict:
-    """Phases 13-17 over ``engine(name)``, phase 5's kernel engines (the
-    reference answers). Returns K1's launches on each service path, and
-    those of all of them by timing row (``row_launches``)."""
+def drive_service(torch, device, g, pg, engine, seed: int):
+    """Phases 13-17 and 19-20 over ``engine(name)``, phase 5's kernel
+    engines (the reference answers). Returns K1's launches on each
+    service path and those of all of them by timing row
+    (``row_launches``), then the same of K2 on the shard class's paths."""
     from repro_torch.core import algorithms as ALG
     from repro_torch.core.engine import Engine
     from repro_torch.kernels import edge_gather
@@ -1087,8 +1248,165 @@ def drive_service(torch, device, g, pg, engine, seed: int) -> dict:
     # a continuous step launches K1 once (BFS), at the slot width
     counted += [(combines_of(engine("bfs").kernel), BATCH, continuous),
                 (combines_of(engine("bfs").kernel), 1, offloaded)]
-    return {"service_bucketed": bucketed, "service_continuous": continuous,
-            "offloaded": offloaded}, row_launches(counted)
+    paths2, rows2 = drive_shard_service(
+        torch, g, setup, front, reference, version,
+        (bfs_roots, sssp_roots, burst_roots))
+    return ({"service_bucketed": bucketed, "service_continuous": continuous,
+             "offloaded": offloaded}, row_launches(counted), paths2, rows2)
+
+
+def drive_shard_service(torch, g, setup, front, reference, version, roots):
+    """Phases 19-20: the service's shard class ``exchange="combined"``
+    (four shards of the card, ``LocalMesh``) over phase 13's plan cache,
+    on phase 13's requests: bucketed, continuous with the burst that
+    parks lanes, bucketed with ``overlap`` toggled per request, then a
+    spill and refault with a dispatch while spilled; K2's launch count
+    from 0 before each and read after; every answer against phase 5's
+    engine (``reference``), plan_traces flat after warm-up. Returns K2's
+    launches on each path, and those of all of them by combined-stack
+    timing row."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.kernels import edge_gather
+    from repro_torch.service import PlanKey
+    bfs_roots, sssp_roots, burst_roots = roots
+    exchange = "combined"
+    t0 = time.perf_counter()
+    warm = front(max_batch=BATCH, exchange=exchange)
+    for name in ("bfs", "sssp"):
+        for overlap in SCHEDULES:
+            warm.warm(GRAPH_ID, name, overlap=overlap)
+    front(scheduling="continuous", slots=BATCH,
+          exchange=exchange).warm(GRAPH_ID, "bfs")
+    traces = setup.plans.sync_trace_counters()
+    shard = [e for e in setup.plans._engines.values()
+             if getattr(e, "exchange", "") == exchange]
+    log("shard_service", exchange=exchange,
+        warm_s=round(time.perf_counter() - t0, 3), plan_traces=traces,
+        engines=len(shard),
+        device_nbytes=sum(e.device_nbytes for e in shard))
+
+    def batches(asked, answers):
+        """(combines, batch, supersteps) of each bucketed batch: a class
+        (kernel, schedule) dispatches its requests in arrival order,
+        BATCH at a time, at a power-of-two batch size."""
+        classes = {}
+        for (name, _, _, _, _, *ov), res in zip(asked, answers):
+            classes.setdefault((name, bool(ov and ov[0])), []).append(res)
+        out = []
+        for (name, overlap), got in classes.items():
+            calls = combines_of(ALG.ALGORITHMS[name](), exchange, overlap)
+            for i in range(0, len(got), BATCH):
+                chunk = got[i:i + BATCH]
+                out.append((calls, len(chunk),
+                            max(r.supersteps for r in chunk)))
+        return out
+
+    def check(tag, asked, answers, snap):
+        if snap["plan_traces"] != traces:
+            raise AssertionError(f"shard {tag}: plan_traces {traces} -> "
+                                 f"{snap['plan_traces']}")
+        for (name, root, *_), res in zip(asked, answers):
+            if res.comm["exchange"] != exchange:
+                raise AssertionError(f"shard {tag}: answered by "
+                                     f"{res.comm}")
+            same_as_engine(res, reference(name, root), name)
+        log("check", shard_service=tag, answers=len(answers),
+            versus_engine="ok", plan_traces="flat")
+
+    # 19a. bucketed
+    asked = ([("bfs", r, 0, 60_000, 0) for r in bfs_roots]
+             + [("sssp", r, 0, 60_000, 0) for r in sssp_roots])
+    answers, bucketed, snap = service_answers(
+        torch, front(max_batch=BATCH, exchange=exchange), asked,
+        counter="windows_launches", shard_scheduling="bucketed")
+    check("bucketed", asked, answers, snap)
+    counted = batches(asked, answers)
+    if bucketed != sum(len(c) * st for c, _, st in counted):
+        raise AssertionError(f"shard bucketed: {bucketed} K2 launches for "
+                             f"batches {counted}")
+
+    # 19b. continuous, with the burst of priority-1 deadline queries
+    asked = [("bfs", r, 0, 60_000, 0) for r in bfs_roots]
+    asked[-1] = asked[-1][:4] + (3,)
+    asked += [("bfs", r, 1, 25, 0) for r in burst_roots]
+    answers, continuous, snap = service_answers(
+        torch, front(scheduling="continuous", slots=BATCH,
+                     exchange=exchange), asked,
+        counter="windows_launches", shard_scheduling="continuous")
+    if snap["preemptions"] < 1 or snap["lane_restores"] < 1:
+        raise AssertionError(f"shard continuous: {snap['preemptions']} "
+                             f"parks, {snap['lane_restores']} restores")
+    check("continuous", asked, answers, snap)
+    # a continuous step folds every lane at the slot width
+    calls = combines_of(ALG.bfs(), exchange)
+    counted.append((calls, BATCH, continuous // len(calls)))
+
+    # 19c. bucketed, every other request on the overlapped schedule
+    asked = [("bfs", r, 0, 60_000, 0, i % 2 == 1)
+             for i, r in enumerate(bfs_roots)]
+    asked += [("sssp", r, 0, 60_000, 0, i % 2 == 1)
+              for i, r in enumerate(sssp_roots)]
+    answers, toggled, snap = service_answers(
+        torch, front(max_batch=BATCH, exchange=exchange), asked,
+        counter="windows_launches", shard_scheduling="bucketed",
+        overlap="toggled")
+    check("overlap-toggled", asked, answers, snap)
+    toggled_batches = batches(asked, answers)
+    if toggled != sum(len(c) * st for c, _, st in toggled_batches):
+        raise AssertionError(f"shard overlap-toggled: {toggled} K2 "
+                             f"launches for batches {toggled_batches}")
+    counted += toggled_batches
+
+    # 19d. spill and refault through the store
+    svc = front(max_batch=BATCH, exchange=exchange)
+    root = int(bfs_roots[0])
+    before = svc.query(GRAPH_ID, "bfs", root=root, deadline_ms=60_000)
+    t0 = time.perf_counter()
+    if not svc.store.evict(GRAPH_ID):
+        raise AssertionError("the store refused to spill the graph")
+    spill_s = time.perf_counter() - t0
+    spilled_bytes = svc.store.snapshot()["spilled_bytes"]
+    if any(e.device_resident for e in shard):
+        raise AssertionError("a spilled graph's shard engine is resident")
+    plan = svc.plans.get_plan(PlanKey(GRAPH_ID, "bfs", "gravfm", PARTS, 1,
+                                      version=version, exchange=exchange))
+    edge_gather.windows_launches = 0
+    during = plan.execute(root=np.int32(root))[0]
+    offloaded = edge_gather.windows_launches
+    calls = combines_of(plan.engine.kernel, exchange)
+    if offloaded != during.supersteps * len(calls):
+        raise AssertionError(f"offloaded shard dispatch: {offloaded} K2 "
+                             f"launches for {during.supersteps} supersteps "
+                             f"x {calls}")
+    after = svc.query(GRAPH_ID, "bfs", root=root, deadline_ms=60_000)
+    if not all(e.device_resident for e in shard):
+        raise AssertionError("the refault left a shard engine offloaded")
+    for res in (during, after):
+        same_result(res, before, "bfs")
+    same_as_engine(before, reference("bfs", root), "bfs")
+    snap = svc.stats_snapshot()
+    if snap["plan_traces"] != traces:
+        raise AssertionError("shard spill/refault traced anew")
+    log("shard_spill", spill_s=round(spill_s, 6),
+        spilled_bytes=spilled_bytes,
+        offloaded_launches=offloaded,
+        refault_upload_ms=snap["store_refault_upload_ms"],
+        faults=snap["store_faults"], resident="False->True",
+        versus_resident="ok")
+    counted.append((calls, 1, during.supersteps))
+
+    # 20. where a shard service batch's time goes
+    batch = [("bfs", r, 0, 60_000, 0) for r in bfs_roots[:BATCH]]
+    svc = front(max_batch=BATCH, exchange=exchange)
+    profiled(torch, lambda: service_answers(
+        torch, svc, batch, counter="windows_launches",
+        shard_scheduling="bucketed", profiled=True),
+        service="bucketed", exchange=exchange, queries=BATCH)
+    return ({"shard_service_bucketed": bucketed,
+             "shard_service_continuous": continuous,
+             "shard_service_overlap_toggled": toggled,
+             "shard_offloaded": offloaded},
+            {"combined": row_launches(counted)})
 
 
 def profiled(torch, fn, **label):

@@ -326,16 +326,8 @@ class LaneStepper(LaneStepperBase):
                  wire_stat: Optional[str] = None):
         super().__init__(data, width, torch.device(device),
                          trace_hook=trace_hook)
-
-        def probe_of(carry):
-            # lane bits, superstep counters and (when the engine names
-            # its wire stat) the lanes' wire-words sum, packed for one read
-            parts = [prog.alive(carry).to(torch.float64),
-                     carry.superstep.to(torch.float64)]
-            if wire_stat is not None:
-                parts.append(carry.stats[wire_stat].sum().to(
-                    torch.float64).view(1))
-            return torch.cat(parts)
+        self._prog, self._wire_stat = prog, wire_stat
+        probe_of = self._probe_of
 
         def init_fn(d, qkw):
             c = prog.init_carry(d, params, qkw, width)
@@ -380,6 +372,18 @@ class LaneStepper(LaneStepperBase):
         self._deliver_p = self._program("deliver", deliver_fn)
         self._combine_p = self._program("combine", combine_fn)
         self._apply_p = self._program("apply", apply_fn)
+
+    def _probe_of(self, carry: StepCarry) -> torch.Tensor:
+        """Lane bits, superstep counters and (when the engine names its
+        wire stat) the lanes' wire-words sum, packed for one read."""
+        parts = [self._prog.alive(carry).to(torch.float64),
+                 carry.superstep.to(torch.float64)]
+        if self._wire_stat is not None:
+            parts.append(self._wire_words(carry).to(torch.float64).view(1))
+        return torch.cat(parts)
+
+    def _wire_words(self, carry: StepCarry) -> torch.Tensor:
+        return carry.stats[self._wire_stat].sum()
 
     def init(self, qkw: Dict[str, np.ndarray]):
         return self._unpack(self._init(self._dev(), self._qdev(qkw)))

@@ -176,8 +176,7 @@ class _ClassRun:
         # every superstep dispatch runs on (() for single-device plans)
         mesh = getattr(splan.engine, "mesh", None)
         self.devices: tuple = (
-            tuple(str(d) for d in mesh.devices.flat)
-            if mesh is not None else ())
+            tuple(mesh.devices) if mesh is not None else ())
         self.table = LaneTable(splan.stepper, slots, splan.query_params,
                                trace=trace, label=label,
                                devices=self.devices)

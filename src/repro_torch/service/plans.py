@@ -1,8 +1,10 @@
 """Compiled-plan cache for the graph query service.
 
 The port's copy of ``repro.service.plans``: its engines are the port's
-``Engine`` on the cache's device; the shard classes (``exchange != ""``)
-raise until the shard engine's lane stepper is ported.
+``Engine`` on the cache's device, and, for the shard classes
+(``exchange != ""``), the port's ``ShardEngine`` with all ``num_shards``
+shards on that one device (``LocalMesh``), where the JAX service asks
+for ``num_shards`` devices.
 
 A *plan* is everything needed to answer a class of queries with zero
 per-query setup cost: the partitioned, device-resident graph arrays plus
@@ -53,7 +55,9 @@ import numpy as np
 
 from ..core.algorithms import ALGORITHMS
 from ..core.engine import Engine, EngineResult, resolve_device
+from ..core.engine_shardmap import EXCHANGES, ShardEngine, ShardLaneStepper
 from ..core.graph import Graph
+from ..core.mesh import LocalMesh
 from ..core.partition import PartitionedGraph
 from ..core.stepper import LaneStepper
 from ..store import GraphStore
@@ -73,14 +77,11 @@ def check_backend(backend: str) -> str:
 
 
 def check_exchange(exchange: str) -> str:
-    """Only the one-device engine's classes (``exchange=""``) are served:
-    the shard classes wait for the shard engine's lane stepper and its
-    offload/upload."""
-    if exchange:
-        raise NotImplementedError(
-            f"exchange={exchange!r}: the service's shard classes are not "
-            "ported yet; they wait for ShardLaneStepper and "
-            "ShardEngine.offload/upload (ROADMAP §1 item 7, steps 6-7)")
+    """``""`` (the one-device ``Engine``) or one of the shard engine's
+    exchanges."""
+    if exchange and exchange not in EXCHANGES:
+        raise ValueError(f"exchange must be '' or one of {EXCHANGES}, "
+                         f"got {exchange!r}")
     return exchange
 
 
@@ -105,12 +106,13 @@ class PlanKey:
 
     def __post_init__(self):
         check_backend(self.backend)
+        check_exchange(self.exchange)
 
 
 class CompiledPlan:
     """A cached (engine, batch size) pair ready to execute."""
 
-    def __init__(self, key: PlanKey, engine: Engine):
+    def __init__(self, key: PlanKey, engine: "Engine | ShardEngine"):
         self.key = key
         self.engine = engine
         self.executions = 0
@@ -124,19 +126,23 @@ class CompiledPlan:
         """Run the plan on arrays already padded to ``key.batch_size``
         (scalars allowed when batch_size == 1). Returns per-query
         results in input order. Varying ``max_supersteps`` costs no
-        re-trace."""
+        re-trace on the one-device engine (the shard engine counts one
+        per superstep cap, as the JAX one does)."""
         self.executions += 1
+        # overlap=True only ever reaches a ShardEngine: the key is
+        # normalized (overlap implies exchange) before the cache lookup
+        ov = {"overlap": True} if self.key.overlap else {}
         if self.key.batch_size == 1:
             scalars = {k: np.asarray(v).reshape(()) for k, v
                        in query_arrays.items()}
-            return [self.engine.run(max_supersteps, **scalars)]
+            return [self.engine.run(max_supersteps, **ov, **scalars)]
         for k, v in query_arrays.items():
             n = np.asarray(v).shape[0]
             if n != self.key.batch_size:
                 raise ValueError(
                     f"plan expects batch {self.key.batch_size}, got {n} "
                     f"for {k!r}")
-        return self.engine.run_batch(max_supersteps, **query_arrays)
+        return self.engine.run_batch(max_supersteps, **ov, **query_arrays)
 
     def warmup(self) -> "CompiledPlan":
         """Trace + compile now (first root of the graph) so the first real
@@ -160,8 +166,8 @@ class StepperPlan:
     driving. ``engine`` packages retired lanes (``lane_result``) and
     owns the trace counter the stepper's programs bump."""
     key: PlanKey
-    engine: Engine
-    stepper: LaneStepper
+    engine: "Engine | ShardEngine"
+    stepper: "LaneStepper | ShardLaneStepper"
 
     @property
     def query_params(self) -> Tuple[str, ...]:
@@ -248,8 +254,8 @@ class PlanCache:
         return dataclasses.replace(
             key, version=self.store.known_version(key.graph_id))
 
-    def _engine_for(self, key: PlanKey, method: str) -> Engine:
-        check_exchange(key.exchange)
+    def _engine_for(self, key: PlanKey,
+                    method: str) -> "Engine | ShardEngine":
         # NOTE: ek deliberately omits key.overlap — both schedules of a
         # class share one engine (and its device-resident graph arrays)
         ek = (key.graph_id, key.version, key.kernel, key.mode,
@@ -261,8 +267,16 @@ class PlanCache:
                                f"{sorted(ALGORITHMS)}")
             pg = self.graph(key.graph_id, key.num_shards, method,
                             version=key.version or None)
-            eng = Engine(ALGORITHMS[key.kernel](), pg, mode=key.mode,
-                         backend=key.backend, device=self.device)
+            if key.exchange:
+                # all the class's shards on the cache's one device
+                eng = ShardEngine(ALGORITHMS[key.kernel](), pg,
+                                  mesh=LocalMesh(key.num_shards,
+                                                 self.device),
+                                  exchange=key.exchange,
+                                  backend=key.backend)
+            else:
+                eng = Engine(ALGORITHMS[key.kernel](), pg, mode=key.mode,
+                             backend=key.backend, device=self.device)
             self._engines[ek] = eng
             # charge the TRUE engine-tier device bytes against the
             # store's budget (replacing the partition-layout proxy): a
@@ -309,7 +323,11 @@ class PlanCache:
                 raise ValueError(
                     f"kernel {key.kernel!r} declares no query_params; "
                     "it cannot be continuously batched")
-            stepper = engine.make_stepper(key.batch_size)
+            if key.exchange:
+                stepper = engine.make_stepper(key.batch_size,
+                                              overlap=key.overlap)
+            else:
+                stepper = engine.make_stepper(key.batch_size)
             splan = StepperPlan(key, engine, stepper)
             self._steppers[key] = splan
         return splan

@@ -148,7 +148,8 @@ class GraphQueryService:
         self.partition_method = partition_method
         # default shard exchange schedule: "" serves via the single-host
         # Engine; "allgather"/"ring"/"frontier"/"unicast"/"combined"
-        # serve via a num_shards-device ShardEngine. A request's
+        # serve via a ShardEngine whose num_shards shards all live on
+        # the service's device (LocalMesh). A request's
         # ``exchange`` field overrides per query class.
         self.exchange = check_exchange(exchange)
         # default exchange pipelining: overlap the exchange collective
@@ -760,10 +761,14 @@ class GraphQueryService:
                 # may not evict it mid-execution (faults it back in
                 # first if it was evicted since registration)
                 lease = self.store.acquire(qclass.graph_id, qclass.version)
+            # the class's own schedule: a request's ``overlap`` binds it
+            # (the reference passes only the exchange here, so its
+            # bucketed batches run the service's default schedule)
             plan = self.plans.get_plan(
                 self._plan_key(qclass.graph_id, qclass.kernel, qclass.mode,
                                bucket_for(n, self.max_batch),
-                               qclass.version, exchange=qclass.exchange),
+                               qclass.version, exchange=qclass.exchange,
+                               overlap=qclass.overlap),
                 method=self.partition_method)
             bucket = plan.key.batch_size
             cap = self.max_supersteps

@@ -2,7 +2,10 @@
 stacked per-shard layouts) against their plain versions, the engines'
 kernel paths against their oracle paths, and the query service on the
 card: its answers, an offloaded engine's dispatch (still K1 on the card)
-and bucketed and continuous dispatch on one engine at the same time.
+and bucketed and continuous dispatch on one engine at the same time; the
+shard engine's five exchanges in both schedules, its lane stepper, an
+offloaded shard engine (still K2 on the card) and a shard class of the
+service.
 
 Marked ``gpu``; each test decides inside itself whether there is a card
 and skips without one. The file imports no JAX, so it runs on a machine
@@ -18,7 +21,7 @@ from repro_torch.core import algorithms as TA
 from repro_torch.core import graph as TG
 from repro_torch.core import partition as TPT
 from repro_torch.core.engine import Engine
-from repro_torch.core.engine_shardmap import ShardEngine
+from repro_torch.core.engine_shardmap import EXCHANGES, ShardEngine
 from repro_torch.core.mesh import LocalMesh
 from repro_torch.kernels import edge_gather, ops
 from repro_torch.kernels.layout import (WORK_TILES, StackedLayout,
@@ -368,3 +371,134 @@ def test_cuda_service_needs_the_card_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         GraphQueryService()
+
+
+def _k2_calls(kernel, exchange, overlap=False):
+    """K2 launches a superstep of ``exchange`` makes: the receiver's key,
+    `got` unless derived from the identity, and the carry (allgather,
+    frontier); the source's key, the mail bit (always in the synchronous
+    schedule, else unless derived from the identity) and the carry
+    (combined); none for the ring and unicast (oracle folds)."""
+    if exchange in ("ring", "unicast"):
+        return 0
+    calls = 1 + (kernel.carry_dtype is not None)
+    if exchange == "combined" and not overlap:
+        return calls + 1
+    return calls + (not kernel.got_from_identity)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exchange", EXCHANGES)
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("name", ["bfs", "sssp"])
+def test_cuda_shard_schedules_match_ref(exchange, overlap, name):
+    """Every exchange in both schedules on the card equals the ref shard
+    engine on the CPU, and launches K2 as many times as its folds say."""
+    _need_card()
+    g = TG.rmat(10, 8, seed=3, weighted=True).symmetrized()
+    pg = TPT.partition_graph(g, 4, pad_multiple=16)
+    want = ShardEngine(TA.ALGORITHMS[name](), pg, exchange=exchange,
+                       backend="ref", mesh=LocalMesh(4, "cpu")).run(root=3)
+    eng = ShardEngine(TA.ALGORITHMS[name](), pg, exchange=exchange)
+    before = edge_gather.windows_launches
+    got = eng.run(root=3, overlap=overlap)
+    assert edge_gather.windows_launches - before == _k2_calls(
+        eng.kernel, exchange, overlap) * got.supersteps
+    _same_as(got, want, name)
+    batch = eng.run_batch(root=np.array([3, 40, 99]), overlap=overlap)
+    for r, res in zip((3, 40, 99), batch):
+        solo = eng.run(root=r)
+        assert (res.supersteps, res.messages) == (solo.supersteps,
+                                                  solo.messages)
+        for k in solo.state:
+            np.testing.assert_array_equal(res.state[k], solo.state[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exchange,overlap", [("combined", False),
+                                              ("frontier", True)])
+def test_cuda_shard_stepper_launches_k2(exchange, overlap):
+    """A ShardLaneStepper steps its lanes through K2 on the card, and its
+    lanes retire with their solo runs' results."""
+    _need_card()
+    _, pg = _service_graph()
+    eng = ShardEngine(TA.sssp(), pg, exchange=exchange)
+    st = eng.make_stepper(4, overlap=overlap)
+    roots = np.array([3, 9, 40, 77], np.int32)
+    carry, act, _ = st.init({"root": roots})
+    assert carry.active.device.type == "cuda"
+    steps = 0
+    before = edge_gather.windows_launches
+    while act.any():
+        carry, act, _ = st.step(carry, act)
+        steps += 1
+    assert edge_gather.windows_launches - before == _k2_calls(
+        eng.kernel, exchange, overlap) * steps
+    host = st.fetch(carry)
+    for lane, r in enumerate(roots):
+        _same_as(eng.lane_result(host, lane), eng.run(root=int(r)), "sssp")
+
+
+@pytest.mark.gpu
+def test_cuda_offloaded_shard_engine_launches_k2():
+    """An offloaded shard engine stages its host copies (the stacked
+    layouts included) to the card for each call: K2 still runs there,
+    for run and for a stepper."""
+    _need_card()
+    _, pg = _service_graph()
+    eng = ShardEngine(TA.sssp(), pg, exchange="combined")
+    want = eng.run(root=3)
+    st = eng.make_stepper(2)
+    carry, act, _ = st.init({"root": np.array([3, 9], np.int32)})
+    assert eng.offload() == eng.device_nbytes > 0
+    assert not eng.device_resident
+    assert eng._data.comb.rel.device.type == "cpu"
+    before = edge_gather.windows_launches
+    got = eng.run(root=3)
+    assert edge_gather.windows_launches - before == 3 * got.supersteps
+    _same_as(got, want, "sssp")
+    before = edge_gather.windows_launches
+    carry, act, _ = st.step(carry, act)
+    assert edge_gather.windows_launches - before == 3
+    assert carry.active.device.type == "cuda"
+    assert eng.upload() > 0.0 and eng.device_resident
+    assert eng._data.comb.rel.device.type == "cuda"
+    while act.any():
+        carry, act, _ = st.step(carry, act)
+    _same_as(eng.lane_result(st.fetch(carry), 0), want, "sssp")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheduling", ["bucketed", "continuous"])
+def test_cuda_shard_service_matches_engine(scheduling):
+    """A shard class of the service on the card (four shards of one
+    card) answers as the oracle engine does, through K2, with the
+    schedule toggled per request."""
+    _need_card()
+    g, pg = _service_graph()
+    svc = GraphQueryService(num_shards=4, exchange="combined", max_batch=8,
+                            slots=4, scheduling=scheduling,
+                            result_cache_size=0)
+    svc.add_graph("g", g, pad_multiple=16)
+    for k in ("bfs", "sssp"):
+        for ov in (False, True):
+            svc.warm("g", k, overlap=ov)
+    traces = svc.stats_snapshot()["plan_traces"]
+    asked = [(k, r, i % 2 == 1) for i, (k, r) in enumerate(
+        (k, r) for k in ("bfs", "sssp")
+        for r in range(0, g.num_vertices, 37))]
+    before = edge_gather.windows_launches
+    futs = [svc.submit(QueryRequest("g", k, {"root": r}, deadline_ms=60_000,
+                                    overlap=ov)) for k, r, ov in asked]
+    svc.flush()
+    assert edge_gather.windows_launches > before
+    ref = {k: Engine(TA.ALGORITHMS[k](), pg, backend="ref", device="cpu")
+           for k in ("bfs", "sssp")}
+    for (k, r, _), f in zip(asked, futs):
+        got, want = f.result(timeout=0), ref[k].run(root=r)
+        assert (got.supersteps, got.messages) == (want.supersteps,
+                                                  want.messages)
+        assert got.comm["exchange"] == "combined"
+        for key in want.state:
+            np.testing.assert_array_equal(got.state[key], want.state[key])
+    assert svc.stats_snapshot()["plan_traces"] == traces

@@ -9,9 +9,12 @@ CPU processes, launched as subprocesses with a timeout so that a hung
 collective fails the test instead of stalling the suite; they meet
 through a ``file://`` store under the test's temporary directory (no TCP
 port to collide with other test workers) and import no JAX. Each rank
-checks the collectives against ``LocalMesh`` on the stacked array, then
-runs BFS and SSSP (``run`` and ``run_batch``) on the three exchanges; the
-results of every rank must equal ``LocalMesh``'s exactly.
+checks the collectives against ``LocalMesh`` on the stacked array
+(``ppermute`` and the async ``all_to_all`` among them), then runs BFS and
+SSSP (``run`` and ``run_batch``) on the five exchanges and on the
+overlapped frontier and combined schedules (``ppermute_async`` and
+``all_to_all_async`` on the wire); the results of every rank must equal
+``LocalMesh``'s exactly.
 """
 import json
 import os
@@ -34,7 +37,9 @@ from repro_torch.core.mesh import LocalMesh, ProcessGroupMesh
 torch.set_num_threads(1)
 
 WORLD = 4
-EXCHANGES = ["allgather", "unicast", "combined"]
+# the exchanges, and two overlapped schedules ("-ov")
+EXCHANGES = ["allgather", "ring", "frontier", "unicast", "combined",
+             "frontier-ov", "combined-ov"]
 ROOT, ROOTS = 5, [0, 17, 99]
 
 
@@ -47,6 +52,12 @@ def test_local_mesh_collectives():
         for q in range(WORLD):
             assert torch.equal(recv[:, me, q], send[:, q, me])
     assert torch.equal(mesh.all_gather(send), send)
+    assert torch.equal(mesh.all_to_all_async(send).wait(), recv)
+    hop = mesh.ppermute(send)
+    for me in range(WORLD):     # shard me receives shard me-1's block
+        assert torch.equal(hop[:, me], send[:, (me - 1) % WORLD])
+    assert torch.equal(mesh.ppermute_async(send).wait(), hop)
+    assert mesh.devices == ("cpu",) * WORLD
     x = torch.from_numpy(rng.integers(-9, 9, (3, WORLD)))
     assert torch.equal(mesh.psum(x, dim=1), x.sum(dim=1))
     assert torch.equal(mesh.pmax(x, dim=1), x.amax(dim=1))
@@ -67,13 +78,15 @@ def _graph():
 def _runs(mesh, pg, data):
     """name -> the results the gloo ranks and LocalMesh both produce."""
     out = {}
-    for exchange in EXCHANGES:
+    for schedule in EXCHANGES:
+        exchange, _, ov = schedule.partition("-")
         for name in ("bfs", "sssp"):
             eng = ShardEngine(TA.ALGORITHMS[name](), pg, mesh=mesh,
                               exchange=exchange, shard_data=data,
                               tile_e=64, tile_r=32)
-            res = [eng.run(root=ROOT)] + eng.run_batch(root=np.array(ROOTS))
-            out[f"{exchange}-{name}"] = res
+            res = [eng.run(root=ROOT, overlap=bool(ov))] + eng.run_batch(
+                root=np.array(ROOTS), overlap=bool(ov))
+            out[f"{schedule}-{name}"] = res
     return out
 
 
@@ -101,6 +114,12 @@ blocks = send[..., 0] > 50
 assert torch.equal(mesh.all_to_all(blocks[:, me]),
                    local.all_to_all(blocks)[:, me])
 assert torch.equal(mesh.all_gather(bits[:, me]), bits)
+assert torch.equal(mesh.all_to_all_async(send[:, me]).wait(),
+                   local.all_to_all(send)[:, me])
+assert torch.equal(mesh.ppermute(send[:, me]), local.ppermute(send)[:, me])
+assert torch.equal(mesh.ppermute_async(bits[:, me]).wait(),
+                   local.ppermute(bits)[:, me])
+assert mesh.devices == ("cpu",)
 x = send[:, :, :, 0].sum(-1)
 assert torch.equal(mesh.psum(x[:, me], dim=1), x.sum(dim=1))
 assert torch.equal(mesh.pmax(x[:, me], dim=1), x.amax(dim=1))

@@ -22,6 +22,7 @@ from repro_torch.core import algorithms as TA
 from repro_torch.core import graph as TG
 from repro_torch.core import partition as TPT
 from repro_torch.core.engine import Engine
+from repro_torch.core.engine_shardmap import ShardEngine
 from repro_torch.service import (GraphQueryService, PlanCache, PlanKey,
                                  QueryRequest)
 
@@ -278,13 +279,33 @@ def test_store_publish_spill_and_refault(graph):
     assert before.supersteps > 0
 
 
-def test_shard_classes_and_backends_rejected(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        GraphQueryService(device="cpu", exchange="combined")
+def test_shard_classes_and_backends_rejected(graph, monkeypatch):
+    """The shard classes are served (``exchange="combined"`` builds the
+    port's ShardEngine with its four shards on the cache's device); an
+    unknown exchange and the JAX package's ``backend="pallas"`` are
+    refused."""
+    svc = GraphQueryService(device="cpu", exchange="combined")
+    assert svc.exchange == "combined"
     cache = PlanCache(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cache.get_plan(PlanKey("g", "bfs", "gravfm", 4, 1,
-                               exchange="combined"))
+    cache.register_graph("g", _port_graph(graph), num_shards=4,
+                         pad_multiple=16)
+    plan = cache.get_plan(PlanKey("g", "bfs", "gravfm", 4, 1,
+                                  exchange="combined"))
+    assert isinstance(plan.engine, ShardEngine)
+    assert plan.engine.mesh.devices == ("cpu",) * 4
+    res = plan.execute(root=np.int32(3))[0]
+    want = Engine(TA.bfs(), TPT.partition_graph(_port_graph(graph), 4,
+                                                pad_multiple=16),
+                  device="cpu").run(root=3)
+    assert (res.supersteps, res.messages) == (want.supersteps,
+                                              want.messages)
+    np.testing.assert_array_equal(res.state["parent"], want.state["parent"])
+    assert res.comm["exchange"] == "combined"
+    for bad in (lambda: GraphQueryService(device="cpu", exchange="mesh"),
+                lambda: PlanKey("g", "bfs", "gravfm", 4, 1,
+                                exchange="mesh")):
+        with pytest.raises(ValueError, match="exchange"):
+            bad()
     with pytest.raises(ValueError, match="kernel"):
         GraphQueryService(device="cpu", backend="pallas")
     with pytest.raises(ValueError, match="kernel"):

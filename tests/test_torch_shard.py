@@ -43,7 +43,7 @@ from repro_torch.core.mesh import LocalMesh
 torch.set_num_threads(1)
 
 TILES = dict(tile_e=64, tile_r=32)
-EXCHANGES = ["allgather", "unicast", "combined"]
+EXCHANGES = ["allgather", "ring", "frontier", "unicast", "combined"]
 GRAPHS = {
     "uniform": lambda: G.uniform(300, 5.0, seed=7).symmetrized(),
     "rmat": lambda: G.rmat(8, 6, seed=3).symmetrized(),
@@ -166,18 +166,25 @@ def test_run_batch_equals_solo_runs(graphs, mesh, exchange, name):
 
 
 def test_unported_options_raise(graphs, mesh):
+    """What the shard engine still refuses, as the JAX one does: an
+    overlapped unicast/combined schedule with an ``add`` combiner (its
+    windowed receiver fold is exact for min/max only), an unknown
+    exchange, a mesh or tiles that do not fit the graph, a misspelled
+    query parameter, a stepper of no lanes."""
     _, tpg, data = graphs["uniform"]
-    for exchange in ("ring", "frontier"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ShardEngine(TA.bfs(), tpg, mesh=mesh, exchange=exchange,
-                        shard_data=data, **TILES)
+    for exchange in ("unicast", "combined"):
+        eng = _engine(graphs, mesh, "uniform", "pagerank", exchange, "kernel")
+        for call in (lambda: eng.run(overlap=True),
+                     lambda: eng.make_stepper(4, overlap=True)):
+            with pytest.raises(ValueError, match="min/max"):
+                call()
+        assert eng.run().supersteps > 0
+    with pytest.raises(ValueError, match="exchange"):
+        ShardEngine(TA.bfs(), tpg, mesh=mesh, exchange="hierarchical",
+                    shard_data=data, **TILES)
     eng = _engine(graphs, mesh, "uniform", "bfs", "combined", "kernel")
-    for call in (lambda: eng.run(overlap=True),
-                 lambda: eng.run_batch(overlap=True, root=np.arange(2)),
-                 lambda: eng.make_stepper(4), lambda: eng.lane_result(None, 0),
-                 eng.offload, eng.upload):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(ValueError, match="width"):
+        eng.make_stepper(0)
     with pytest.raises(ValueError):
         ShardEngine(TA.bfs(), tpg, mesh=LocalMesh(2, "cpu"), shard_data=data,
                     **TILES)

@@ -2,12 +2,19 @@
 """Drive the PyTorch port of GraVF-M on one NVIDIA card, and check it.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --kernels  # phases 1-4, 7-9 and 12 only
+    python3 chip_smoke.py --kernels  # phases 1-4, 7-9, 12 and platform
     python3 chip_smoke.py --seed 3   # the service phases' roots (default 0)
 
 Phases, in order; any failure exits non-zero:
   1. device : the card's name, the device count, nvidia-smi's name and
               power limit. Without CUDA the script exits 2 at once.
+     platform: the H100 profile's constants measured again (perfmodel.H100):
+              the SM count, the SM clock nvidia-smi reports (clocks.max.sm,
+              with clocks.sm sampled while the card streams), total
+              memory, the median rate of a streaming read of 4 GiB
+              (torch.sum, CUDA events) and the random-access granularity
+              (that rate over the random int32 gathers a second of a 4 GiB
+              table); each beside its constant, failing outside 0.5-2x.
   2. build  : nvcc builds every kernel of src/repro_torch/kernels/csrc;
               one line per entry: registers, spills, static shared memory
               (-Xptxas -v) and the dynamic shared memory of its launch.
@@ -27,14 +34,21 @@ Phases, in order; any failure exits non-zero:
               count set to 0 just before and read just after; BFS checked
               by graph500's rules, every run against the port's
               backend="ref" engine on the same graph.
-  6. profile: torch.profiler over one BFS and one PageRank run: the
-              busiest operators and the device's idle share.
+  6. profile: torch.profiler over one BFS, one WCC and one PageRank run:
+              the busiest operators and the device's idle share.
+     projection: each algorithm's cycles per edge fitted again from
+              phase 6's device-busy time (perfmodel.h100_algo) beside the
+              H100_ALGOS constant (0.5-2x); then for BFS run, the 8-root
+              run_batch, WCC and PageRank (phase 5's walls) the measured
+              TEPS, L_PE, L_mem and T_sys of perfmodel.limits on the H100
+              profile at n_nodes=1, and the efficiency TEPS / T_sys.
   7. timing : CUDA-event times of the kernel at the main path's shapes,
               beside its plain version, one scatter_reduce_ call on the
               same data (the yardstick; the port never calls it on its
-              kernel path) and the bytes bound at 3.35 TB/s; each row with
-              its launches on phase 5's path and launches x (ms -
-              bound_ms), the time they lose against the bound.
+              kernel path) and the bytes bound at 3.35 TB/s and at the
+              platform phase's measured stream rate; each row with its
+              launches on phase 5's path and launches x (ms - bound_ms),
+              the time they lose against the bound.
   8. shard host : build_shard_data on the same graph (4 shards): the
               stacked CSC lanes and the combined exchange's lanes.
   9. shard sweep: the stacked kernel (K2) against its plain version, as
@@ -53,7 +67,8 @@ Phases, in order; any failure exits non-zero:
               graph500's rules; the wire words of each exchange (frontier
               beside allgather) and the average degree.
  11. shard profile: phase 6 for each exchange, and one overlapped
-              combined BFS.
+              combined BFS; the projection of each exchange's synchronous
+              BFS, WCC and PageRank runs (phase 10's walls) on one card.
  18. shard stepper (runs after 11): make_stepper(8) for BFS over the
               combined and frontier exchanges and the overlapped combined
               schedule: 12 roots through 8 lanes, lanes admitted
@@ -94,6 +109,15 @@ Phases, in order; any failure exits non-zero:
               phase 5's engine, plan_traces flat after warm-up.
  20. shard service profile: torch.profiler over one bucketed batch of 8
               BFS through the shard class.
+     service projection: one bucketed batch of 8 BFS through the
+              one-device class and through the shard class, each with
+              roofline_platform=perfmodel.H100 and with the default
+              PAPER_PLATFORM: each class's gravfm_roofline_efficiency and
+              projected TEPS; the H100 ones must be above 0.
+     dryrun : repro_torch.launch.dryrun's graph cell (R-MAT scale 26,
+              256 shards, WCC) for the five exchanges on the meta device:
+              argument and created bytes per shard, collective bytes,
+              words, teps_bound; the card's peak allocation must not move.
 Then one JSON line with both kernels' numbers (each with its launches
 on every path, "paths"), the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}.
@@ -118,7 +142,10 @@ TIMING_ITERS = 50
 GRAPH_ID = f"rmat{SCALE}"
 SERVICE_BFS, SERVICE_SSSP, SERVICE_BURST = 64, 8, 8
 TIMING_ROUNDS = 5
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+STREAM_BYTES = 4 << 30      # the platform phase's buffers: 80x the L2
+GATHERS = 1 << 26           # random int32 gathers a timed call makes
+PROFILE_RATIO = (0.5, 2.0)  # a measured constant against perfmodel.H100
 PAGERANK_RTOL, PAGERANK_ATOL = 1e-4, 1e-9
 KERNEL = {
     "name": "segment_combine",
@@ -167,12 +194,75 @@ def log(phase: str, **fields) -> None:
           flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(fields: str, units: bool = True) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}",
+         "--format=csv,noheader" + ("" if units else ",nounits")],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def against(tag: str, measured: float, constant: float) -> float:
+    """Log a measured constant beside perfmodel's; raise outside
+    PROFILE_RATIO (a wrong unit or another card, not drift)."""
+    ratio = measured / constant
+    log("platform", constant=tag, measured=measured, perfmodel=constant,
+        ratio=round(ratio, 4))
+    lo, hi = PROFILE_RATIO
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"{tag}: measured {measured} is {ratio:.3f}x "
+                             f"perfmodel's {constant}")
+    return ratio
+
+
+def phase_platform(torch) -> float:
+    """Measure the H100 profile's constants again and hold each against
+    perfmodel.H100; returns the measured stream rate (bytes/s)."""
+    from repro_torch.core import perfmodel
+    H = perfmodel.H100
+    props = torch.cuda.get_device_properties(0)
+    x = torch.ones(STREAM_BYTES // 4, dtype=torch.float32, device="cuda")
+    read_ms = event_ms(torch, lambda: x.sum(), 10)
+    # the clocks while the card streams: ~0.3 s of reads queued first
+    for _ in range(200):
+        x.sum()
+    clocks = nvidia_smi("clocks.sm,clocks.max.sm,clocks.mem,clocks.max.mem",
+                        units=False).split(", ")
+    torch.cuda.synchronize()
+    y = torch.empty_like(x)
+    copy_ms = event_ms(torch, lambda: y.copy_(x), 10)
+    del x, y
+    table = torch.arange(STREAM_BYTES // 4, dtype=torch.int32,
+                         device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    idx = torch.randint(0, table.numel(), (GATHERS,), generator=gen,
+                        device="cuda")
+    if not torch.equal(table.index_select(0, idx), idx.to(torch.int32)):
+        raise AssertionError("the gather read wrong values")
+    gather_ms = event_ms(torch, lambda: table.index_select(0, idx), 10)
+    del table, idx
+    torch.cuda.empty_cache()
+    bw = STREAM_BYTES / (read_ms / 1e3)
+    gathers_per_s = GATHERS / (gather_ms / 1e3)
+    sm, sm_max, mem, mem_max = (float(c) for c in clocks)
+    log("platform", stream_bytes=STREAM_BYTES, read_ms=read_ms,
+        read_bytes_per_s=bw, copy_ms=copy_ms,
+        copy_bytes_per_s=2 * STREAM_BYTES / (copy_ms / 1e3),
+        gathers=GATHERS, gather_ms=gather_ms, gathers_per_s=gathers_per_s,
+        clocks_sm_mhz=sm, clocks_max_sm_mhz=sm_max, clocks_mem_mhz=mem,
+        clocks_max_mem_mhz=mem_max, sms=props.multi_processor_count,
+        total_memory=props.total_memory)
+    against("n_pe_max (SMs)", props.multi_processor_count, H.n_pe_max)
+    against("f_clk (clocks.max.sm, Hz)", sm_max * 1e6, H.f_clk)
+    against("bw_mem (stream read, B/s)", bw, H.bw_mem)
+    against("m_memword (bw_mem / gathers a second, B)",
+            bw / gathers_per_s, H.m_memword)
+    against("m_board (total_memory, B)", props.total_memory, H.m_board)
+    return bw
 
 
 def event_ms(torch, fn, iters: int, warmup: int = 3,
@@ -196,7 +286,7 @@ def event_ms(torch, fn, iters: int, warmup: int = 3,
     return float(np.median(means))
 
 
-def bound_ms(layout, batch: int) -> float:
+def bound_ms(layout, batch: int, rate: float = HBM_BYTES_PER_S) -> float:
     """Least time for the combine: the bytes it must move (rel and
     tile_start read once, vals once per query, the output written once
     per query) over the card's memory rate. One fold per lane per query
@@ -204,16 +294,17 @@ def bound_ms(layout, batch: int) -> float:
     lanes = layout.rel.numel()
     nbytes = 4 * (lanes + layout.tile_start.numel()
                   + batch * (lanes + layout.num_segments))
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    return nbytes / rate * 1e3
 
 
-def bound_ms_stacked(layout, batch: int) -> float:
+def bound_ms_stacked(layout, batch: int,
+                     rate: float = HBM_BYTES_PER_S) -> float:
     """K2's least time: ``bound_ms`` over the lanes the shards own (the
     tiles a shorter shard is padded with are never read)."""
     lanes = int(layout.tile_start[:, -1].sum()) * layout.tile_e
     rows = layout.rel.shape[0] * layout.num_segments
     nbytes = 4 * (lanes + layout.tile_start.numel() + batch * (lanes + rows))
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    return nbytes / rate * 1e3
 
 
 def lane_values(torch, layout, combiner, dtype, batch, gen):
@@ -468,7 +559,8 @@ def same_result(got, want, name: str) -> None:
 def phase_main(torch, g, pg, kernel_engine, ref_engine, roots):
     """Run the main path through the kernel engine with the launch count
     from 0; check each run; return the launch count of the whole path,
-    the runs and the launches of each timing row (``row_launches``)."""
+    the runs, the launches of each timing row (``row_launches``) and
+    each run's (algorithm, entry, messages, wall seconds)."""
     from repro_torch.kernels import edge_gather
     runs = [
         ("bfs", "run", {"root": int(roots[0])}),
@@ -477,7 +569,7 @@ def phase_main(torch, g, pg, kernel_engine, ref_engine, roots):
         ("pagerank", "run", {}),
         ("sssp", "run", {"root": int(roots[0])}),
     ]
-    results, counted = [], []
+    results, counted, walls = [], [], []
     kernel_engine("bfs").run(root=int(roots[0]))  # warm-up, untimed
     torch.cuda.synchronize()
     edge_gather.launches = 0
@@ -506,6 +598,7 @@ def phase_main(torch, g, pg, kernel_engine, ref_engine, roots):
                                  f"{steps} supersteps x {calls}")
         results.append((name, entry, kwargs, outs))
         counted.append((calls, len(outs), steps))
+        walls.append((name, entry, messages, wall))
     total = edge_gather.launches
     log("main", launches_total=total)
     rows = row_launches(counted)
@@ -523,7 +616,7 @@ def phase_main(torch, g, pg, kernel_engine, ref_engine, roots):
                 log("check", algorithm="bfs", entry=entry, root=int(r),
                     graph500="ok", depth=depth)
         log("check", algorithm=name, entry=entry, versus_ref="ok")
-    return total, results, rows
+    return total, results, rows, walls
 
 
 def with_launches(rec, rows) -> dict:
@@ -536,10 +629,11 @@ def with_launches(rec, rows) -> dict:
     return rec
 
 
-def phase_timing(torch, layout, device, rows=None):
+def phase_timing(torch, layout, device, rate: float, rows=None):
     """Kernel, plain-version and scatter_reduce_ times at the main path's
     full-width layout, for the main path's key combines, with each row's
-    launches on the main path (``rows``, from phase 5)."""
+    launches on the main path (``rows``, from phase 5) and its bound at
+    the measured stream ``rate`` too."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import REDUCE, identity_for
     gen = torch.Generator(device=device).manual_seed(1)
@@ -569,6 +663,8 @@ def phase_timing(torch, layout, device, rows=None):
                    "bound_ms": bound_ms(layout, batch),
                    "library_ms": library_ms}
             rec["bound_share"] = rec["bound_ms"] / ms
+            rec["bound_ms_measured"] = bound_ms(layout, batch, rate)
+            rec["bound_share_measured"] = rec["bound_ms_measured"] / ms
             with_launches(rec, rows)
             log("timing", **{k: v for k, v in rec.items() if k != "used_by"})
             records.append(rec)
@@ -587,9 +683,11 @@ def window_spread(tag: str, tile_start) -> None:
         max=int(tiles.max()))
 
 
-def drive(torch, device, full: bool = True, seed: int = 0):
-    """Phases 3-20 (``full=False``: only the host, sweep and timing
-    phases). Returns the kernels' records for the JSON line."""
+def drive(torch, device, rate: float, full: bool = True, seed: int = 0):
+    """Phases 3-20 and the service projection (``full=False``: only the
+    host, sweep and timing phases); ``rate`` is the platform phase's
+    measured stream rate. Returns the kernels' records for the JSON
+    line."""
     from repro_torch.core import algorithms as ALG
     from repro_torch.core.engine import Engine
 
@@ -622,10 +720,11 @@ def drive(torch, device, full: bool = True, seed: int = 0):
     roots = rng.choice(np.flatnonzero(deg > 0), size=BATCH, replace=False)
     launches, engine_runs, rows = None, [], None
     if full:
-        launches, engine_runs, rows = phase_main(torch, g, pg, kernel_engine,
-                                                 ref_engine, roots)
-        phase_profile(torch, kernel_engine, int(roots[0]))
-    records = phase_timing(torch, layout, device, rows)
+        launches, engine_runs, rows, walls = phase_main(
+            torch, g, pg, kernel_engine, ref_engine, roots)
+        fitted_cpe(phase_profile(torch, kernel_engine, int(roots[0])))
+        project(g, walls)
+    records = phase_timing(torch, layout, device, rate, rows)
     # the service phases hold their answers against the bfs and sssp
     # engines; the rest go now
     for name in set(kernel_engines) - {"bfs", "sssp"}:
@@ -638,7 +737,7 @@ def drive(torch, device, full: bool = True, seed: int = 0):
           "ms": head["ms"], "plain_ms": head["plain_ms"],
           "bound_ms": head["bound_ms"], "bound_by": "bytes",
           "library_ms": head["library_ms"], "variants": records}
-    k2 = drive_shard(torch, device, g, pg, roots, engine_runs, full)
+    k2 = drive_shard(torch, device, g, pg, roots, engine_runs, rate, full)
     if full:
         # K1's launches on each path, each counted from 0 (``launches``
         # stays the main path's), and the service paths' by timing row
@@ -657,7 +756,7 @@ def drive(torch, device, full: bool = True, seed: int = 0):
     return [k1, k2]
 
 
-def drive_shard(torch, device, g, pg, roots, engine_runs, full=True):
+def drive_shard(torch, device, g, pg, roots, engine_runs, rate, full=True):
     """Phases 8-12 and 18. Returns K2's record for the JSON line."""
     from repro_torch.core.engine_shardmap import build_shard_data
     t0 = time.perf_counter()
@@ -675,12 +774,14 @@ def drive_shard(torch, device, g, pg, roots, engine_runs, full=True):
     max_err = phase_sweep_stacked(torch, stacks, device)
     launches, rows, paths = None, None, {}
     if full:
-        launches, rows = phase_shard(torch, device, g, engine, roots,
-                                     engine_runs)
+        launches, rows, walls = phase_shard(torch, device, g, engine, roots,
+                                            engine_runs)
         for exchange in EXCHANGES:
             phase_profile(torch,
                           lambda name: engine(exchange, name, "kernel"),
                           int(roots[0]), exchange=exchange)
+            project(g, [w[1:] for w in walls if w[0] == exchange],
+                    exchange=exchange)
         eng = engine("combined", "bfs", "kernel")
         profiled(torch, lambda: eng.run(root=int(roots[0]), overlap=True),
                  exchange="combined", overlap=True, algorithm="bfs")
@@ -690,7 +791,7 @@ def drive_shard(torch, device, g, pg, roots, engine_runs, full=True):
         stepped, stepper_rows = phase_shard_stepper(torch, engine,
                                                     stepper_roots)
         paths = {"shard": launches, "shard_stepper": stepped}
-    records = phase_timing_stacked(torch, stacks, device, rows)
+    records = phase_timing_stacked(torch, stacks, device, rate, rows)
     for rec in records:
         rec["stepper_launches"] = None if not paths else stepper_rows[
             rec["stack"]].get((rec["combiner"], rec["dtype"], rec["batch"]),
@@ -801,7 +902,8 @@ def phase_shard(torch, device, g, engine, roots, engine_runs) -> int:
     refuse overlap=True), with K2's launch count from 0; then each run
     against the backend="ref" shard engine and the one-device engine, BFS
     by graph500's rules. Returns the launch count of the whole path and
-    the launches of each stack's timing rows (``row_launches``)."""
+    the launches of each stack's timing rows (``row_launches``) and each
+    synchronous run's (exchange, algorithm, entry, messages, wall s)."""
     from repro_torch.kernels import edge_gather
     for exchange in EXCHANGES:  # warm-up, untimed
         for overlap in (False, True):
@@ -809,7 +911,7 @@ def phase_shard(torch, device, g, engine, roots, engine_runs) -> int:
                                                   overlap=overlap)
     torch.cuda.synchronize()
     edge_gather.windows_launches = 0
-    results, words = [], {}
+    results, words, walls = [], {}, []
     # Launches of each stack's timing rows: allgather and frontier fold
     # over the CSC stack, the combined exchange over the combined stack.
     counted = {"csc": [], "combined": []}
@@ -846,6 +948,8 @@ def phase_shard(torch, device, g, engine, roots, engine_runs) -> int:
                         f"{calls}")
                 results.append((exchange, overlap, name, entry, kwargs,
                                 outs))
+                if not overlap:
+                    walls.append((exchange, name, entry, messages, wall))
                 stack = {"allgather": "csc", "frontier": "csc",
                          "combined": "combined"}.get(exchange)
                 if stack:
@@ -895,7 +999,7 @@ def phase_shard(torch, device, g, engine, roots, engine_runs) -> int:
         log("check", exchange=exchange, overlap=overlap, algorithm=name,
             entry=entry, versus_ref="ok", versus_engine="ok",
             graph500="ok" if name == "bfs" else "-")
-    return total, rows
+    return total, rows, walls
 
 
 def phase_shard_stepper(torch, engine, roots):
@@ -980,10 +1084,11 @@ def phase_shard_stepper(torch, engine, roots):
     return total, {k: row_launches(v) for k, v in counted.items()}
 
 
-def phase_timing_stacked(torch, stacks, device, rows=None):
+def phase_timing_stacked(torch, stacks, device, rate: float, rows=None):
     """K2's kernel, plain-version and scatter_reduce_ times at the two
     full-width stacks, for the shard path's combines, with each row's
-    launches on the shard path (``rows[stack]``, from phase 10)."""
+    launches on the shard path (``rows[stack]``, from phase 10) and its
+    bound at the measured stream ``rate`` too."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import REDUCE, identity_for
     gen = torch.Generator(device=device).manual_seed(3)
@@ -1024,6 +1129,9 @@ def phase_timing_stacked(torch, stacks, device, rows=None):
                        "bound_ms": bound_ms_stacked(layout, batch),
                        "library_ms": library_ms}
                 rec["bound_share"] = rec["bound_ms"] / ms
+                rec["bound_ms_measured"] = bound_ms_stacked(layout, batch,
+                                                            rate)
+                rec["bound_share_measured"] = rec["bound_ms_measured"] / ms
                 with_launches(rec, None if rows is None else rows[stack])
                 log("shard_timing",
                     **{k: v for k, v in rec.items() if k != "used_by"})
@@ -1251,6 +1359,7 @@ def drive_service(torch, device, g, pg, engine, seed: int):
     paths2, rows2 = drive_shard_service(
         torch, g, setup, front, reference, version,
         (bfs_roots, sssp_roots, burst_roots))
+    phase_service_projection(torch, front, bfs_roots)
     return ({"service_bucketed": bucketed, "service_continuous": continuous,
              "offloaded": offloaded}, row_launches(counted), paths2, rows2)
 
@@ -1409,10 +1518,77 @@ def drive_shard_service(torch, g, setup, front, reference, version, roots):
             {"combined": row_launches(counted)})
 
 
+def phase_service_projection(torch, front, roots) -> None:
+    """One bucketed batch of BATCH BFS through the one-device class and
+    the shard class (``exchange="combined"``), each served once with
+    ``roofline_platform=perfmodel.H100`` and once with the default
+    PAPER_PLATFORM: each class's gravfm_roofline_teps,
+    gravfm_roofline_projected_teps and gravfm_roofline_efficiency
+    gauges. Against the card the efficiency must be above 0."""
+    from repro_torch.core import perfmodel
+    asked = [("bfs", r, 0, 60_000, 0) for r in roots[:BATCH]]
+    gauges = ("gravfm_roofline_teps", "gravfm_roofline_projected_teps",
+              "gravfm_roofline_efficiency")
+    for exchange, counter in ((None, "launches"),
+                              ("combined", "windows_launches")):
+        for platform in (perfmodel.H100, perfmodel.PAPER_PLATFORM):
+            kw = {"exchange": exchange} if exchange else {}
+            svc = front(max_batch=BATCH, roofline_platform=platform, **kw)
+            service_answers(torch, svc, asked, counter=counter,
+                            projection=repr(platform.name),
+                            exchange=exchange)
+            snap = svc.metrics_snapshot()
+            by_class = {}
+            for name in gauges:
+                for series in snap[name]["series"]:
+                    by_class.setdefault(series["labels"]["class"], {})[
+                        name] = series["value"]
+            for ck, vals in by_class.items():
+                log("projection", service="bucketed", exchange=exchange,
+                    platform=repr(platform.name), class_key=ck,
+                    teps=vals[gauges[0]], projected_teps=vals[gauges[1]],
+                    efficiency=vals[gauges[2]])
+                if platform is perfmodel.H100 and not vals[gauges[2]] > 0:
+                    raise AssertionError(f"{ck}: no roofline efficiency "
+                                         "against the H100 profile")
+
+
+def phase_dryrun(torch) -> None:
+    """The graph dry-run cell for the five exchanges on the meta device;
+    the card's peak allocation must not move across it."""
+    from repro_torch.launch import dryrun
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    for exchange in EXCHANGES:
+        cell = dryrun.run_graph_cell(exchange, algo="wcc")
+        mem, coll = cell["memory"], cell["collectives"]
+        log("dryrun", exchange=exchange, shards=cell["meta"]["P"],
+            shape=cell["shape"],
+            argument_bytes_per_shard=mem["argument_bytes"],
+            temp_bytes_per_shard=mem["temp_bytes"],
+            wire_bytes_per_shard=coll["total_wire_bytes"],
+            collectives=json.dumps({k: v for k, v in coll.items()
+                                    if k != "total_wire_bytes"},
+                                   separators=(",", ":")),
+            words_per_superstep=cell["words_per_superstep"]["total"],
+            teps_bound=cell["teps_bound"],
+            bottleneck=cell["roofline"]["bottleneck"],
+            L_if="not_bounded", L_net="not_bounded",
+            host_s=round(cell["host_s"], 3))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log("dryrun", memory_allocated_before=before, max_memory_allocated=peak)
+    if peak != before:
+        raise AssertionError(f"the dry-run allocated on the card: peak "
+                             f"{peak} against {before}")
+
+
 def profiled(torch, fn, **label):
     """Run ``fn`` once under torch.profiler and log its wall time, the
     device's busy time and idle share over that wall, its launches and
-    the busiest kernels by self device time. Returns ``fn``'s result."""
+    the busiest kernels by self device time. Returns ``fn``'s result and
+    the busy seconds."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1436,15 +1612,54 @@ def profiled(torch, fn, **label):
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log("profile", **label, kernel=repr(e.key[:100]), calls=e.count,
             self_device_ms=round(dev_us(e) / 1e3, 4))
-    return res
+    return res, busy
 
 
-def phase_profile(torch, kernel_engine, root: int, **label) -> None:
-    """Where a superstep's device time goes: one BFS run and one PageRank
-    run through ``profiled``."""
-    for name, kwargs in (("bfs", {"root": root}), ("pagerank", {})):
+def phase_profile(torch, kernel_engine, root: int, **label) -> dict:
+    """Where a superstep's device time goes: one BFS, one WCC and one
+    PageRank run through ``profiled``. Returns each algorithm's (edges
+    traversed, device-busy seconds)."""
+    busy = {}
+    for name, kwargs in (("bfs", {"root": root}), ("wcc", {}),
+                         ("pagerank", {})):
         eng = kernel_engine(name)
-        profiled(torch, lambda: eng.run(**kwargs), **label, algorithm=name)
+        res, busy_s = profiled(torch, lambda: eng.run(**kwargs), **label,
+                               algorithm=name)
+        busy[name] = (res.messages, busy_s)
+    return busy
+
+
+def fitted_cpe(busy) -> None:
+    """Each algorithm's cycles per edge fitted again from phase 6's
+    device-busy time (``perfmodel.h100_algo``), held against the
+    H100_ALGOS constant."""
+    from repro_torch.core import perfmodel
+    for name, (edges, busy_s) in busy.items():
+        algo = perfmodel.H100_ALGOS[name]
+        fit = perfmodel.h100_algo(name, busy_s=busy_s, edges=edges,
+                                  m_vertex=algo.m_vertex)
+        log("projection", algorithm=name, edges=edges, busy_s=busy_s,
+            busy_s_per_edge=busy_s / edges)
+        against(f"{name} cpe (SM cycles per edge)", fit.cpe, algo.cpe)
+
+
+def project(g, runs, **label) -> None:
+    """Measured TEPS of each run ((algorithm, entry, messages, wall s))
+    beside perfmodel.limits on the H100 profile at n_nodes=1 (one card),
+    and the efficiency TEPS / T_sys (the paper's measured over
+    projected)."""
+    from repro_torch.core import perfmodel
+    wl = perfmodel.Workload(g.num_vertices, g.num_edges)
+    for name, entry, messages, wall in runs:
+        if name not in perfmodel.H100_ALGOS:
+            continue
+        lim = perfmodel.limits(perfmodel.H100, perfmodel.H100_ALGOS[name],
+                               wl, n_nodes=1)
+        teps = messages / wall
+        log("projection", **label, algorithm=name, entry=entry,
+            teps=teps, L_PE=lim["L_PE"], L_mem=lim["L_mem"],
+            T_sys=lim["T_sys"], bottleneck=lim["bottleneck"],
+            efficiency=teps / lim["T_sys"])
 
 
 def main() -> int:
@@ -1461,11 +1676,14 @@ def main() -> int:
     log("device", kind=repr(kind), count=torch.cuda.device_count(),
         nvidia_smi=repr(smi), torch=torch.__version__,
         cuda=torch.version.cuda)
+    rate = phase_platform(torch)
     phase_build()
     args = sys.argv[1:]
     full = "--kernels" not in args
     seed = int(args[args.index("--seed") + 1]) if "--seed" in args else 0
-    records = drive(torch, torch.device("cuda"), full, seed)
+    records = drive(torch, torch.device("cuda"), rate, full, seed)
+    if full:
+        phase_dryrun(torch)
     print(json.dumps({"kernels": records}), flush=True)
     if not full:
         return 0

@@ -71,7 +71,7 @@ from .stepper import (LaneStepper, StepCarry, SuperstepProgram, _sync,
                       tree_map, tree_nbytes)
 
 __all__ = ["EXCHANGES", "ShardData", "ShardEngine", "ShardLaneStepper",
-           "ShardMeta", "build_shard_data"]
+           "ShardMeta", "abstract_shard_data", "build_shard_data"]
 
 EXCHANGES = ("allgather", "ring", "frontier", "unicast", "combined")
 
@@ -282,6 +282,41 @@ _INDEX_FIELDS = ("src_slot", "seg", "rb_src_local", "rb_dst_local",
                  "comb_seg", "comb_recv_dst_local")
 
 
+def abstract_shard_data(meta: ShardMeta,
+                        exchange: str = "allgather") -> ShardData:
+    """Stand-ins on the ``meta`` device for the dry-run (no allocation):
+    the fields that ``exchange`` reads on the device with
+    ``backend="ref"``, at the port's shapes and dtypes, every other field
+    None. The shapes are the JAX ``abstract_shard_data``'s; the gather
+    indices (``_INDEX_FIELDS``) are int64, 8 bytes a lane where JAX's are
+    int32."""
+    if exchange not in EXCHANGES:
+        raise ValueError(f"exchange must be one of {EXCHANGES}, "
+                         f"got {exchange!r}")
+    P, Vm, E2 = meta.P, meta.v_max, meta.e_pair_max
+    lanes = {"src_": (P, meta.n_tiles * meta.tile_e),
+             "rb_": (P, P, E2), "pair_": (P, P, E2),
+             "comb_": (P, meta.comb_tiles * meta.tile_e)}
+    shapes = {"vert_gid": (P, Vm), "vert_valid": (P, Vm), "out_deg": (P, Vm),
+              "w": lanes["src_"], "lane_valid": lanes["src_"],
+              "seg": lanes["src_"], "recv_dst_local": (P, P, E2),
+              "comb_recv_dst_local": (P, P, meta.comb_max)}
+    out = dict.fromkeys(ShardData._fields)
+    for name in _VERTEX_FIELDS + _EXCHANGE_FIELDS[exchange]:
+        shape = shapes.get(name) or next(
+            v for k, v in lanes.items() if name.startswith(k))
+        if name in _INDEX_FIELDS:
+            dtype = torch.int64
+        elif name.endswith("valid"):
+            dtype = torch.bool
+        elif name.endswith("w"):
+            dtype = torch.float32
+        else:
+            dtype = torch.int32
+        out[name] = torch.empty(shape, dtype=dtype, device="meta")
+    return ShardData(**out)
+
+
 def _take(acc: torch.Tensor, ident, seg: torch.Tensor) -> torch.Tensor:
     """Each lane's fold value: ``acc_pad[..., min(seg, n)]``, where
     ``acc_pad`` is ``acc`` (B, S, n) with one identity bin appended, and
@@ -318,37 +353,51 @@ class ShardEngine:
     # is folded.
     OVERLAP_WINDOWS = 4
 
-    def __init__(self, kernel: GasKernel, pg: PartitionedGraph, *,
+    def __init__(self, kernel: GasKernel, pg_or_meta, *,
                  mesh=None, exchange: str = "allgather",
                  backend: str = "kernel", tile_e: int = 512,
                  tile_r: int = 256, params: Optional[Dict[str, Any]] = None,
                  shard_data: Optional[tuple] = None):
-        """``mesh`` defaults to ``LocalMesh(pg.num_parts)`` on the card.
-        ``shard_data`` is ``build_shard_data(pg, tile_e=, tile_r=)``'s
-        result, to share one host build between engines."""
+        """``pg_or_meta`` is a :class:`PartitionedGraph`, or a
+        :class:`ShardMeta` for the dry-run: such an engine holds no data,
+        runs ``backend="ref"`` (the kernel's work list is built from real
+        data on the host) and serves :meth:`superstep_fn` over
+        :func:`abstract_shard_data`. ``mesh`` defaults to
+        ``LocalMesh(P)`` on the card. ``shard_data`` is
+        ``build_shard_data(pg, tile_e=, tile_r=)``'s result, to share one
+        host build between engines."""
         if exchange not in EXCHANGES:
             raise ValueError(f"exchange must be one of {EXCHANGES}, "
                              f"got {exchange!r}")
         if backend not in ("kernel", "ref"):
             raise ValueError(f"backend must be 'kernel' or 'ref', "
                              f"got {backend!r}")
-        self.mesh = LocalMesh(pg.num_parts) if mesh is None else mesh
-        if self.mesh.num_shards != pg.num_parts:
+        graph = isinstance(pg_or_meta, PartitionedGraph)
+        if not graph and backend != "ref":
+            raise ValueError("an engine over a ShardMeta runs "
+                             "backend='ref'")
+        P = pg_or_meta.num_parts if graph else pg_or_meta.P
+        self.mesh = LocalMesh(P) if mesh is None else mesh
+        if self.mesh.num_shards != P:
             raise ValueError(f"mesh has {self.mesh.num_shards} shards, the "
-                             f"graph {pg.num_parts}")
+                             f"graph {P}")
         self.device = self.mesh.device
         self.kernel = kernel
-        self.pg = pg
         self.exchange = exchange
         self.backend = backend
         self.params = dict(params or {})
-        self.params.setdefault("num_vertices", pg.num_vertices)
-        if shard_data is None:
-            shard_data = build_shard_data(pg, tile_e=tile_e, tile_r=tile_r)
-        np_data, self.meta = shard_data
-        if (self.meta.tile_e, self.meta.tile_r) != (tile_e, tile_r):
-            raise ValueError("shard_data was built with other tiles")
-        self._data = self._upload(np_data)
+        if graph:
+            self.pg = pg_or_meta
+            if shard_data is None:
+                shard_data = build_shard_data(pg_or_meta, tile_e=tile_e,
+                                              tile_r=tile_r)
+            np_data, self.meta = shard_data
+            if (self.meta.tile_e, self.meta.tile_r) != (tile_e, tile_r):
+                raise ValueError("shard_data was built with other tiles")
+            self._data = self._upload(np_data)
+        else:
+            self.pg, self.meta, self._data = None, pg_or_meta, None
+        self.params.setdefault("num_vertices", self.meta.num_vertices)
         m, dev = self.meta, self.device
         # wire words a shard puts on the wire each superstep (frontier's
         # depend on the superstep's frontier: _frontier_buffers)
@@ -377,7 +426,7 @@ class ShardEngine:
         self.traces = 0
         self._traced: set = set()
         self._trace_lock = threading.Lock()
-        self._device_resident = True
+        self._device_resident = graph
         # one program per schedule; the overlapped one is built on first
         # use (it refuses an add combiner on unicast/combined); both share
         # this engine's device data
@@ -614,14 +663,17 @@ class ShardEngine:
         the batch. The bucket is picked on the host after one read of the
         all-reduced frontier sizes (the JAX engine switches on the
         device); a larger buffer than a query's own bucket changes no
-        value, and each query's words are its own bucket's, as JAX's."""
+        value, and each query's words are its own bucket's, as JAX's.
+        On the ``meta`` device (the dry-run) nothing can be read: the
+        buffer takes the largest bucket, the most bytes a superstep can
+        move, which is what JAX's ``lax.switch`` traces too."""
         m, mesh = self.meta, self.mesh
         B, S, Vm = active.shape
         n_max = mesh.pmax(active.sum(dim=2), dim=1)               # (B,)
         sel = torch.searchsorted(self._caps, n_max).clamp(
             max=len(self._caps_host) - 1)
         words = (self._caps[sel] * (2 * (m.P - 1))).to(torch.float32)
-        cap = self._caps_host[int(sel.max())]
+        cap = self._caps_host[-1 if active.is_meta else int(sel.max())]
         pos = torch.where(active, active.cumsum(dim=2) - 1, cap)
         ids = torch.full((B, S, cap + 1), Vm, dtype=torch.int64,
                          device=self.device)
@@ -877,7 +929,8 @@ class ShardEngine:
                 "is only exact for min/max combiners; kernel "
                 f"{self.kernel.name!r} combines with "
                 f"{self.kernel.combiner!r}")
-        S, device, mesh = self._data.vert_gid.shape[0], self.device, self.mesh
+        mesh, device = self.mesh, self.device
+        S = mesh.shards.stop - mesh.shards.start
         deliver = getattr(self, f"_deliver_{self.exchange}"
                           + ("_ov" if overlap else ""))
 
@@ -897,6 +950,23 @@ class ShardEngine:
         return SuperstepProgram(self.kernel, deliver, init_stats=init_stats,
                                 update_stats=update_stats,
                                 global_any=global_any)
+
+    # ---------------- dry-run hook --------------------------------------
+    def superstep_fn(self):
+        """One full synchronous superstep (deliver, gather, apply) as a
+        function of ``(data, payload, active, state, superstep)``, the
+        unit the dry-run runs on ``meta`` tensors: ``data`` is a
+        :class:`ShardData` (``abstract_shard_data``), the others are a
+        carry's leaves, ``superstep`` (B,) int32. Returns the next
+        :class:`StepCarry`, its stats those of this superstep alone."""
+        prog = self._prog_for(False)
+
+        def superstep(data, payload, active, state, superstep):
+            carry = StepCarry(state, payload, active, superstep,
+                              prog.init_stats(superstep.shape[0]))
+            return prog.step(data, carry)
+
+        return superstep
 
     # ---------------- entry points --------------------------------------
     def _global_state(self, v: torch.Tensor) -> torch.Tensor:

@@ -13,15 +13,23 @@ with
 
 speedup(GraVF-M / GraVF) = |E|/|V| * 1/n * m_update/m_message   (eq. 5/8)
 
-One platform profile ships with the model: ``PAPER_PLATFORM``, the 4x
-Micron AC-510 (KU060 + HMC, PCIe backplane) system of §6.1, with the
-experimentally measured constants (Table 2). The service's roofline
-telemetry projects against it, as the JAX service does; it is the
-paper's FPGA platform, not a bound of the card.
+Two platform profiles ship with the model:
+  * ``PAPER_PLATFORM`` — the 4x Micron AC-510 (KU060 + HMC, PCIe backplane)
+    system of §6.1, with the experimentally measured constants (Table 2).
+    Used to validate the model against the paper's own published numbers,
+    and the service's default roofline platform, as in the JAX service.
+  * ``H100`` — one NVIDIA H100 80GB HBM3, every constant measured on the
+    card by ``chip_smoke.py``'s ``platform`` phase (stream rate, random
+    gather granularity, SMs, clock, memory), with ``H100_ALGOS``' cycles
+    per edge fitted from the device-busy time of the port's engine on the
+    card (:func:`h100_algo`). One card has no wire: its interface and
+    network rates are unbounded, and ``limits`` at ``n_nodes=1`` sets
+    L_if = L_net = inf.
 
-The port's own copy of the formulas of ``repro.core.perfmodel``. The JAX
-package's TPU profile (``TPU_V5E``, ``tpu_algo``) is not copied: an H100
-platform waits for the card's own microbenchmarks.
+The port's own copy of the formulas of ``repro.core.perfmodel``; the JAX
+package's TPU profile (``TPU_V5E``, ``tpu_algo``) is replaced by the H100
+one. ``ALGO_PROFILES`` maps each shipped platform to its algorithm
+profiles.
 """
 from __future__ import annotations
 
@@ -30,8 +38,10 @@ import math
 from typing import Dict, Optional
 
 __all__ = [
-    "Platform", "AlgoProfile", "Workload", "limits", "PAPER_PLATFORM",
-    "PAPER_ALGOS", "words_per_superstep", "traffic_reduction", "EXCHANGES",
+    "Platform", "AlgoProfile", "Workload", "limits", "speedup_eq5",
+    "optimize", "min_nodes_for_memory", "PAPER_PLATFORM", "H100",
+    "PAPER_ALGOS", "H100_ALGOS", "h100_algo", "ALGO_PROFILES",
+    "words_per_superstep", "traffic_reduction", "EXCHANGES",
     "PHASE_TERMS", "phase_projection", "overlapped_limits",
     "overlapped_projection",
 ]
@@ -95,6 +105,83 @@ PAPER_ALGOS = {
     "pagerank": AlgoProfile("pagerank", cpe=1.42, m_vertex=8, m_update=8,
                             m_message=8, m_edge=8),
 }
+
+
+# --- One NVIDIA H100 80GB HBM3 (the port's card) ------------------------
+# Every constant was measured in one chip call, calibration call 2 of the
+# H100 profile (PERF.md §6, "H100 constants"), by chip_smoke.py's
+# ``platform`` phase on "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi's
+# name and power limit in that call); the phase re-measures each one on
+# every run and fails outside 0.5-2x.
+H100 = Platform(
+    name="NVIDIA H100 80GB HBM3",
+    # clocks.max.sm, 1980 MHz, the boost ceiling nvidia-smi reports;
+    # clocks.sm read 1980 MHz while the card streamed. L_PE does not
+    # depend on this choice: H100_ALGOS' CPE is fitted at the same clock.
+    f_clk=1980e6,
+    # multi_processor_count: an SM plays the paper's PE
+    n_pe_max=132,
+    # the median rate of a streaming read of 4 GiB (torch.sum of float32,
+    # CUDA events, 5 rounds of 10), 0.926 of the data sheet's 3.35 TB/s
+    bw_mem=3102883959440.72,
+    # One card has no wire: the shards of a LocalMesh exchange through
+    # device memory, and ProcessGroupMesh on NCCL needs two cards.
+    bw_if=math.inf,
+    bw_network=math.inf,
+    # total_memory
+    m_board=85017493504,
+    # bw_mem over the random int32 gathers a second of a 4 GiB table
+    # (index_select of 2**26 int64 indices: 27.07 G/s), the §5.4 access
+    # word measured: 114.6 B, the 8-byte index and 4-byte output of each
+    # gather included
+    m_memword=114.64539357836078,
+    n_nodes_max=1,
+)
+
+
+def h100_algo(name: str, *, busy_s: float, edges: int, m_vertex: int,
+              m_update: int = 5, m_message: int = 4,
+              m_edge: int = 14) -> AlgoProfile:
+    """The counterpart of §6.1's measured CPE on the card: the device's
+    busy seconds of one warm ``Engine(mode="gravfm").run`` (the profiler's
+    device time, summed over its kernels and copies) over the ``edges`` it
+    traversed, in SM cycles: ``CPE = n_pe_max * f_clk * busy_s / edges``.
+    So ``L_PE = n_pe_max * f_clk / CPE = edges / busy_s`` whatever clock
+    ``f_clk`` names: the TEPS of that run with the device never idle.
+
+    Bytes, at the port's dtypes:
+      m_update  = 5: the broadcast per vertex, its payload (int32/float32)
+                  and its active bit (bool), both gathered over src_slot;
+      m_message = 4: the per-edge message (int32/float32);
+      m_edge    = 14: the static layout lanes ``Engine._deliver_gravfm``
+                  reads each superstep: src_slot 8 (int64) + lane_valid 1
+                  + lane_remote 1 + K1's rel 4. w, src_gid and src_outdeg
+                  (4 each) and seg_take (8) are read only by a kernel whose
+                  scatter or carry uses them (SSSP), not by BFS, WCC or
+                  PageRank, whose scatter forwards the payload.
+    """
+    cpe = H100.n_pe_max * H100.f_clk * busy_s / edges
+    return AlgoProfile(name=name, cpe=cpe, m_vertex=m_vertex,
+                       m_update=m_update, m_message=m_message, m_edge=m_edge)
+
+
+# busy_s/edges: chip_smoke.py's phase 6 (profile), the device-busy
+# seconds of one warm run on rmat20 (1,048,576 vertices, 31,404,266
+# edges) and the edges it traversed, in the same chip call as ``H100``'s
+# constants (NVIDIA H100 80GB HBM3, 700.00 W). m_vertex is the state per
+# vertex: parent/label int32 + active bool; PageRank's float32 score.
+H100_ALGOS = {
+    "wcc": h100_algo("wcc", busy_s=0.011973784000000001,
+                     edges=106_357_216, m_vertex=5),
+    "bfs": h100_algo("bfs", busy_s=0.00952824199999999,
+                     edges=31_403_884, m_vertex=5),
+    "pagerank": h100_algo("pagerank", busy_s=0.042678996999999996,
+                          edges=942_127_980, m_vertex=4),
+}
+
+# The algorithm profiles of each shipped platform (the service projects a
+# class against its platform's).
+ALGO_PROFILES = {PAPER_PLATFORM: PAPER_ALGOS, H100: H100_ALGOS}
 
 
 # --- Exchange-schedule traffic model (degree-factor compression) --------
@@ -326,3 +413,35 @@ def overlapped_projection(t_compute: float,
     over = max(t_compute, t_wire)
     return {"serial_s": serial, "overlapped_s": over,
             "gain": serial / over if over > 0 else 1.0}
+
+
+def speedup_eq5(algo: AlgoProfile, wl: Workload, n_nodes: int) -> float:
+    """eq. 5/8: GraVF-M over GraVF when network-limited. The §4.3 filter
+    guarantees >= 1 in practice; the raw model value may be < 1."""
+    return (wl.avg_degree / n_nodes) * (algo.m_update / algo.m_message)
+
+
+def min_nodes_for_memory(platform: Platform, algo: AlgoProfile,
+                         wl: Workload) -> int:
+    """§5.2: enough boards to host vertex state + edges."""
+    bytes_needed = (wl.num_vertices * algo.m_vertex
+                    + wl.num_edges * algo.m_edge)
+    return max(1, math.ceil(bytes_needed / platform.m_board))
+
+
+def optimize(platform: Platform, algo: AlgoProfile, wl: Workload, *,
+             mode: str = "gravfm") -> Dict[str, float]:
+    """§5.7: pick n_nodes maximizing T_sys (L_PE/L_mem rise with n, L_if/
+    L_net fall), then shrink n_pe to the throughput-preserving minimum
+    (power optimization)."""
+    lo = min_nodes_for_memory(platform, algo, wl)
+    best = None
+    for n in range(lo, platform.n_nodes_max + 1):
+        lim = limits(platform, algo, wl, n_nodes=n, mode=mode)
+        if best is None or lim["T_sys"] > best[1]["T_sys"]:
+            best = (n, lim)
+    n_nodes, lim = best
+    n_pe_needed = math.ceil(
+        lim["T_sys"] * algo.cpe / (n_nodes * platform.f_clk))
+    n_pe = min(platform.n_pe_max, max(1, n_pe_needed))
+    return {"n_nodes": n_nodes, "n_pe": n_pe, **lim}

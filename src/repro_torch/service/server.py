@@ -1,14 +1,15 @@
 """The graph query service: accept single queries, batch compatible
+ones under their latency deadlines, dispatch to cached compiled plans,
+return per-query :class:`EngineResult`\\ s.
 
 The port's copy of ``repro.service.server``: ``GraphQueryService(device=
 None, ...)`` serves on the card unless ``device="cpu"`` is given, over
 the port's engines, with ``backend="kernel"`` (the CUDA kernel) by
 default and ``"ref"`` (the oracle) when asked for. The roofline
-telemetry projects against the paper's FPGA platform
-(``perfmodel.PAPER_PLATFORM``), as the JAX service does: it is not a
-bound of the card.
-ones under their latency deadlines, dispatch to cached compiled plans,
-return per-query :class:`EngineResult`\\ s.
+telemetry projects against ``roofline_platform``: by default the paper's
+FPGA platform (``perfmodel.PAPER_PLATFORM``), as the JAX service does;
+``roofline_platform=perfmodel.H100`` projects against the card, with the
+cycles per edge measured there (``perfmodel.H100_ALGOS``).
 
 Two scheduling policies share the admission/plan/stats machinery
 (``scheduling=`` constructor arg):
@@ -652,15 +653,21 @@ class GraphQueryService:
                                           qclass.version or None)
                 wl = perfmodel.Workload(num_vertices=g.num_vertices,
                                         num_edges=g.num_edges)
-                algo = perfmodel.PAPER_ALGOS.get(qclass.kernel)
+                platform = self._roofline_platform
+                algos = perfmodel.ALGO_PROFILES.get(platform,
+                                                    perfmodel.PAPER_ALGOS)
+                algo = algos.get(qclass.kernel)
                 if algo is None:
                     # unprofiled kernel: bfs's per-edge/-vertex op counts
                     # are the closest stand-in for a traversal kernel
-                    algo = dataclasses.replace(
-                        perfmodel.PAPER_ALGOS["bfs"], name=qclass.kernel)
+                    algo = dataclasses.replace(algos["bfs"],
+                                               name=qclass.kernel)
+                # a shard class's shards share the platform's nodes: on
+                # one card (H100, n_nodes_max 1) they share its L_PE and
+                # L_mem and cross no wire
                 lim = perfmodel.limits(
-                    self._roofline_platform, algo, wl,
-                    n_nodes=self.num_shards,
+                    platform, algo, wl,
+                    n_nodes=min(self.num_shards, platform.n_nodes_max),
                     mode=qclass.mode,
                     exchange=qclass.exchange or None)
                 # overlapped-pipeline terms ride along: T_overlap is

@@ -10,6 +10,8 @@ equal: exactly, except PageRank's float32 scores, compared at rtol =
 tests/test_torch_engine.py. The scheduler is driven by hand
 (``submit``/``poll``/``flush``), so no test waits on a thread.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from repro.core import graph as G
 from repro.service import GraphQueryService as JaxService
 from repro.service import QueryRequest as JaxRequest
 from repro_torch.core import algorithms as TA
+from repro_torch.core import perfmodel
 from repro_torch.core import graph as TG
 from repro_torch.core import partition as TPT
 from repro_torch.core.engine import Engine
@@ -107,6 +110,49 @@ def test_service_matches_jax(graph, scheduling):
     tmetrics = tsvc.metrics_snapshot()
     assert set(tmetrics) == set(jsvc.metrics_snapshot())
     assert all(n.startswith("gravfm_") for n in tmetrics)
+
+
+def _serve(svc, Request, stream):
+    """The stream through ``svc`` once every class is warm (a dispatch
+    that traces accounts its wall as compile time, not busy time); the
+    per-class roofline accounting."""
+    for k in KERNELS:
+        svc.warm("g", k, batch_sizes=None if k in ("bfs", "sssp") else [1])
+    futs = [svc.submit(Request("g", k, kw, tenant=t, deadline_ms=60_000))
+            for k, kw, t in stream]
+    svc.flush()
+    for f in futs:
+        f.result(timeout=0)
+    return svc.stats_snapshot()["roofline"]
+
+
+def test_roofline_projection_matches_jax(graph):
+    """Against the paper's platform (the default) every class projects as
+    the JAX service projects it; against the card (perfmodel.H100) a
+    class projects on one card, with no wire term, and its efficiency is
+    above 0."""
+    jsvc, tsvc = _services(graph, max_batch=8, result_cache_size=0)
+    stream = _stream(graph.num_vertices)
+    jroof = _serve(jsvc, JaxRequest, stream)
+    troof = _serve(tsvc, QueryRequest, stream)
+    assert set(troof) == set(jroof) and len(troof) == len(KERNELS)
+    for ck in jroof:
+        assert tsvc.projected_limits(ck) == jsvc.projected_limits(ck), ck
+        assert math.isfinite(tsvc.projected_limits(ck)["L_if"])
+    card = GraphQueryService(device="cpu", max_batch=8, result_cache_size=0,
+                             roofline_platform=perfmodel.H100)
+    card.add_graph("g", _port_graph(graph), pad_multiple=16)
+    roof = _serve(card, QueryRequest, stream)
+    wl = perfmodel.Workload(graph.num_vertices, graph.num_edges)
+    for ck, r in roof.items():
+        lim = card.projected_limits(ck)
+        assert lim["L_if"] == lim["L_net"] == math.inf
+        algo = perfmodel.H100_ALGOS.get(ck.split("/")[1],
+                                        perfmodel.H100_ALGOS["bfs"])
+        assert lim["T_sys"] == perfmodel.limits(
+            perfmodel.H100, algo, wl, n_nodes=1)["T_sys"] == \
+            r["projected_teps"]
+        assert r["efficiency"] == r["teps"] / lim["T_sys"] > 0
 
 
 def test_service_preemption_matches_jax():

@@ -15,6 +15,7 @@ that parks a deep lane. The schedulers are driven by hand
 (``submit``/``poll``/``flush``), so no test waits on a thread.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -27,6 +28,7 @@ import torch
 from benchmarks.continuous import _mixed_graph
 from repro.core import graph as G
 from repro_torch.core import algorithms as TA
+from repro_torch.core import perfmodel
 from repro_torch.core import graph as TG
 from repro_torch.core import partition as TPT
 from repro_torch.core.engine import Engine
@@ -93,6 +95,8 @@ for sched in ("bucketed", "continuous"):
     snap = svc.stats_snapshot()
     out[f"{{sched}}/snap"] = np.array(json.dumps(
         [warm] + [snap[k] for k in {keys!r}]))
+    out[f"{{sched}}/limits"] = np.array(json.dumps(
+        {{ck: svc.projected_limits(ck) for ck in snap["roofline"]}}))
 
 svc = GraphQueryService(num_shards=4, exchange="combined",
                         scheduling="continuous", slots=2,
@@ -198,6 +202,48 @@ def test_shard_service_matches_jax(jax_results, scheduling):
     assert len(svc.plans._engines) == 2
     assert all(isinstance(e, ShardEngine)
                for e in svc.plans._engines.values())
+
+
+def test_shard_class_projection(jax_results):
+    """A shard class projects against the paper's platform as the JAX
+    service's shard class does (four nodes, the combined exchange's
+    wire); against the card (perfmodel.H100) its four shards share one
+    card's L_PE and L_mem and cross no wire, and its efficiency is above
+    0."""
+    g = _graph()
+    stream = _stream(g.num_vertices)
+    want = json.loads(str(jax_results["bucketed/limits"]))
+    wl = perfmodel.Workload(g.num_vertices, g.num_edges)
+    for platform in (None, perfmodel.H100):
+        svc = GraphQueryService(device="cpu", num_shards=4,
+                                exchange="combined", max_batch=8,
+                                result_cache_size=0,
+                                roofline_platform=platform)
+        svc.add_graph("g", _port_graph(g), pad_multiple=16)
+        for k in ("bfs", "sssp"):
+            for ov in (False, True):
+                svc.warm("g", k, overlap=ov)
+        futs = [svc.submit(QueryRequest("g", k, {"root": r},
+                                        deadline_ms=60_000, overlap=ov))
+                for k, r, ov in stream]
+        svc.flush()
+        for f in futs:
+            f.result(timeout=0)
+        roof = svc.stats_snapshot()["roofline"]
+        assert set(roof) == set(want) and len(roof) == 4
+        for ck, r in roof.items():
+            lim = svc.projected_limits(ck)
+            if platform is None:
+                assert lim == want[ck], ck
+                assert math.isfinite(lim["L_if"])
+                continue
+            assert lim["L_if"] == lim["L_net"] == math.inf
+            one = perfmodel.limits(perfmodel.H100,
+                                   perfmodel.H100_ALGOS["bfs"], wl,
+                                   n_nodes=1)
+            assert (lim["L_PE"], lim["L_mem"]) == (one["L_PE"],
+                                                   one["L_mem"])
+            assert r["efficiency"] == r["teps"] / lim["T_sys"] > 0
 
 
 def test_shard_service_preemption_matches_jax(jax_results):

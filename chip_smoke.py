@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --kernels  # phases 1-4, 7-9, 12 and platform
-    python3 chip_smoke.py --seed 3   # the service phases' roots (default 0)
+    python3 chip_smoke.py --seed 3   # the service phases' roots and the
+                                     # LM's weights and prompts (default 0)
+    python3 chip_smoke.py --lm       # device, platform and lm_serve only
 
 Phases, in order; any failure exits non-zero:
   1. device : the card's name, the device count, nvidia-smi's name and
@@ -118,6 +120,29 @@ Phases, in order; any failure exits non-zero:
               256 shards, WCC) for the five exchanges on the meta device:
               argument and created bytes per shard, collective bytes,
               words, teps_bound; the card's peak allocation must not move.
+     lm_serve: the LM substrate's serving path (repro_torch.serve over
+              repro_torch.models, no hand-written kernel). (a) The five
+              dense configs, reduced, on the card and on the CPU from the
+              same bf16 weights (init_params, a CPU generator seeded by
+              --seed): prefill, one decode and greedy_generate; prefill
+              and decode logits within tests/test_models.py's tolerance
+              (atol 0.75, rtol 0.1, top-1 >= 0.5), every greedy token
+              within it of the CPU's top logit on the CPU's re-scoring,
+              the card's tensors on cuda. (b) qwen3-4b at full width and
+              depth (36 layers, 4,022,468,096 bf16 params drawn on the
+              card): batch 8, 512-token prompts from --seed, max_len 576,
+              prefill and 64 greedy decode steps; the reference's
+              prefill/decode consistency (decode at T against lm_forward
+              at T) at its tolerance with the params in float32, and in
+              bf16 top-1 agreement and each path's distance to float32
+              logged; every logit finite, every token a near-argmax of
+              the full forward's re-scoring, greedy_generate's tokens
+              equal to the timed loop's; prefill wall and tokens/s against the
+              FLOP bound at 989 TFLOP/s (bf16 dense, data sheet), decode
+              ms/step (median of 64, CUDA events) and tokens/s against
+              the bytes bound (weights + the whole KV cache the step
+              reads) at the platform phase's stream rate, peak memory.
+              (c) One prefill and one decode step under torch.profiler.
 Then one JSON line with both kernels' numbers (each with its launches
 on every path, "paths"), the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}.
@@ -147,6 +172,22 @@ STREAM_BYTES = 4 << 30      # the platform phase's buffers: 80x the L2
 GATHERS = 1 << 26           # random int32 gathers a timed call makes
 PROFILE_RATIO = (0.5, 2.0)  # a measured constant against perfmodel.H100
 PAGERANK_RTOL, PAGERANK_ATOL = 1e-4, 1e-9
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores (data sheet)
+LM_ARCH = "qwen3-4b"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
+LM_MAX_LEN = LM_PROMPT + LM_NEW
+# tests/test_models.py's prefill/decode tolerance for bf16 logits
+LM_RTOL, LM_ATOL, LM_TOP1 = 0.1, 0.75, 0.5
+LM_SMALL = (2, 12, 8)       # the reduced configs: batch, prompt, new tokens
+# qwen3-4b's bf16 logits at T against a float32 run, at full width: the
+# share outside the tolerance above, the mean and the max |diff|, each
+# 1.5x the largest reading in PERF.md (4.95 %, 0.791, 5.25); and
+# bf16 decode no farther from float32 than 1.5x the bf16 forward is.
+LM_BF16_OUTSIDE, LM_BF16_MEAN, LM_BF16_MAX = 0.075, 1.2, 8.0
+LM_BF16_DECODE_RATIO = 1.5
+# the share of decode's first-layer cache entries more than one bf16 ulp
+# from the forward's (the same bf16 inputs on both paths)
+LM_CACHE_OUTSIDE = 0.01
 KERNEL = {
     "name": "segment_combine",
     "route": "cuda",
@@ -1584,11 +1625,341 @@ def phase_dryrun(torch) -> None:
                              f"{peak} against {before}")
 
 
-def profiled(torch, fn, **label):
+def lm_diff(tag: str, got, want, **fields) -> dict:
+    """Log how far float32 logits ``got`` lie from ``want`` (same shape,
+    any devices): max and mean |diff|, the share outside
+    tests/test_models.py's tolerance, top-1 agreement. Raises if a logit
+    of ``got`` is not finite."""
+    got = got.float().cpu().numpy()
+    want = want.float().cpu().numpy()
+    diff = np.abs(got - want)
+    out = {"max_abs_diff": float(diff.max()),
+           "mean_abs_diff": float(diff.mean()),
+           "outside_tol": float((diff > LM_ATOL + LM_RTOL
+                                 * np.abs(want)).mean()),
+           "top1": float((got.argmax(-1) == want.argmax(-1)).mean())}
+    log("lm_serve", check=tag, **fields, **out)
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{tag}: logits not finite")
+    return out
+
+
+def lm_agree(tag: str, got, want, **fields) -> float:
+    """``lm_diff``, held to tests/test_models.py's bf16 tolerance (atol
+    0.75, rtol 0.1) and top-1 agreement >= 0.5. Returns the max
+    |diff|."""
+    out = lm_diff(tag, got, want, **fields)
+    if out["outside_tol"] > 0:
+        raise AssertionError(f"{tag}: {out['outside_tol']:.4%} of the "
+                             f"logits outside atol {LM_ATOL}, rtol {LM_RTOL}")
+    if out["top1"] < LM_TOP1:
+        raise AssertionError(f"{tag}: top-1 agreement {out['top1']}")
+    return out["max_abs_diff"]
+
+
+def near_argmax(torch, tag: str, logits, chosen) -> None:
+    """Each ``chosen`` token (B, n) must be within the tolerance of the
+    top logit of ``logits`` (B, n, V), the positions that chose it."""
+    picked = logits.gather(-1, chosen[..., None])[..., 0]
+    top = logits.max(dim=-1).values
+    slack = top - picked
+    ok = slack <= LM_ATOL + LM_RTOL * top.abs()
+    same = float((logits.argmax(-1) == chosen).float().mean())
+    log("lm_serve", check=tag, tokens=chosen.numel(), argmax_share=same,
+        max_slack=float(slack.max()))
+    if not bool(ok.all()):
+        raise AssertionError(f"{tag}: {int((~ok).sum())} tokens are not "
+                             "a near-argmax of the re-scoring")
+
+
+def lm_prompt(cfg, batch: int, length: int, seed: int):
+    """Prompt tokens (B, length) and, for a VLM, a stub prefix (B, Sp, D)
+    float32, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, cfg.vocab, (batch, length))
+    prefix = None
+    if cfg.family == "vlm":
+        prefix = rng.standard_normal(
+            (batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+    return tokens, prefix
+
+
+def phase_lm_reduced(torch, seed: int) -> None:
+    """(a) The five dense configs, reduced, on the card against the CPU
+    from the same bf16 weights."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import engine as S
+    B, T, new = LM_SMALL
+    for arch in configs.DENSE_IDS:
+        cfg = configs.get(arch, reduced=True)
+        cpu = L.init_params(LM.lm_spec(cfg),
+                            generator=torch.Generator().manual_seed(seed))
+        tokens, prefix = lm_prompt(cfg, B, T + 1, seed)
+        start = T + (0 if prefix is None else cfg.prefix_len)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = L.tree_map(lambda t: t.to(dev), cpu)
+            pre = None if prefix is None else torch.from_numpy(prefix).to(
+                dev, torch.bfloat16)
+            prefill, decode, init_cache = S.make_serve_fns(
+                cfg, batch=B, max_len=start + new + 1, device=dev)
+            logits, pcache = prefill(params, tokens[:, :T], pre)
+            cache = S.place_prefill_cache(cfg, pcache, init_cache(), T)
+            step, cache = decode(params, cache, tokens[:, T:], start)
+            gen = S.greedy_generate(cfg, params, tokens[:, :T], num_new=new,
+                                    prefix=pre, device=dev)
+            runs[dev] = (logits, step, gen, cache)
+        logits, step, gen, cache = runs["cuda"]
+        on = {t.device.type for t in (logits, step)} | {
+            c["k"].device.type for c in cache["stage"].values()}
+        if on != {"cuda"}:
+            raise AssertionError(f"{arch}: tensors on {on}")
+        lm_agree("reduced_prefill", logits, runs["cpu"][0], arch=arch)
+        lm_agree("reduced_decode", step, runs["cpu"][1], arch=arch)
+        # the card's greedy tokens, re-scored by the CPU's full forward
+        seq = torch.from_numpy(np.concatenate([tokens[:, :T], gen[:, :-1]],
+                                              axis=1))
+        pre = None if prefix is None else torch.from_numpy(prefix).to(
+            torch.bfloat16)
+        with torch.inference_mode():
+            full = LM.lm_forward(cpu, seq, cfg, prefix_embeds=pre)
+        near_argmax(torch, "reduced_greedy", full[:, start - 1:],
+                    torch.from_numpy(gen).long())
+        log("lm_serve", arch=arch, greedy_agree_with_cpu=float(
+            (gen == runs["cpu"][2]).mean()))
+
+
+def bf16_limits(consistency: dict, forward: dict, decode: dict) -> None:
+    """Hold the full-size bf16 run (``lm_diff`` results: decode against
+    the bf16 forward, the bf16 forward and bf16 decode against the
+    float32 forward) to the LM_BF16_* limits and top-1 >= LM_TOP1."""
+    faults = []
+    for tag, d in (("decode vs forward", consistency),
+                   ("forward vs float32", forward),
+                   ("decode vs float32", decode)):
+        if d["top1"] < LM_TOP1:
+            faults.append(f"{tag}: top-1 {d['top1']} < {LM_TOP1}")
+        for key, limit in (("outside_tol", LM_BF16_OUTSIDE),
+                           ("mean_abs_diff", LM_BF16_MEAN),
+                           ("max_abs_diff", LM_BF16_MAX)):
+            if d[key] > limit:
+                faults.append(f"{tag}: {key} {d[key]} > {limit}")
+    for key in ("outside_tol", "mean_abs_diff"):
+        if decode[key] > LM_BF16_DECODE_RATIO * forward[key]:
+            faults.append(f"decode vs float32: {key} {decode[key]} > "
+                          f"{LM_BF16_DECODE_RATIO} x the forward's "
+                          f"{forward[key]}")
+    if faults:
+        raise AssertionError("full-size bf16 logits: " + "; ".join(faults))
+
+
+def cache_written(cache, want, start: int) -> None:
+    """The k/v entries decode wrote into the first layer's cache, from
+    position ``start`` on, against the same positions of ``want``, a
+    forward's caches over the same tokens. The first layer sees the same
+    bf16 embeddings on both paths, so its entries agree to one bf16 ulp
+    but where a GEMM's accumulation order tips the rounding: at most
+    LM_CACHE_OUTSIDE of them may not."""
+    for name in ("k", "v"):
+        got = cache["stage"]["0"][name][0, :, start:].float()
+        ref = want["stage"]["0"][name][0, :, start:].float()
+        if got.shape != ref.shape:
+            raise AssertionError(f"cache {name}: {tuple(got.shape)} "
+                                 f"against {tuple(ref.shape)}")
+        diff = (got - ref).abs()
+        outside = float((diff > 2 ** -7 * ref.abs() + 1e-6).float().mean())
+        log("lm_serve", check="full_cache_written", tensor=name, layer=0,
+            positions=got.shape[1], max_abs_diff=float(diff.max()),
+            outside_ulp=outside)
+        if outside > LM_CACHE_OUTSIDE:
+            raise AssertionError(f"cache {name}: {outside:.4%} of decode's "
+                                 "entries beyond one bf16 ulp of the "
+                                 "forward's")
+
+
+def lm_flops_prefill(cfg, params, batch: int, seq: int) -> int:
+    """The multiply-adds (x2) a last-only prefill of a global-attention
+    model needs: every matmul weight (``w*``) of the blocks once per
+    token, causal attention (QK^T and PV over the s + 1 visible positions
+    of each query), one logits row per sequence. The code also computes
+    the masked blocks and the kv padding of its blockwise attention;
+    those are not counted."""
+    def weights(tree):
+        return sum(weights(v) if isinstance(v, dict) else
+                   (v.numel() if k.startswith("w") else 0)
+                   for k, v in tree.items())
+    matmul = weights(params["stage"]) + weights(params.get("tail", {}))
+    visible = seq * (seq + 1) // 2
+    attn = 4 * batch * cfg.n_heads * cfg.head_dim * visible * cfg.n_layers
+    return (2 * matmul * batch * seq + attn
+            + 2 * batch * cfg.d_model * cfg.vocab_padded)
+
+
+def phase_lm_full(torch, seed: int, rate: float) -> None:
+    """(b) qwen3-4b at full width and depth, and (c) its profile."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import engine as S
+    cfg = configs.get(LM_ARCH)
+    B, T, new, max_len = LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = L.init_params(LM.lm_spec(cfg), generator=gen)
+    torch.cuda.synchronize()
+    leaves = []
+    L.tree_map(lambda t: leaves.append(t), params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log("lm_serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv}", d_ff=cfg.d_ff, vocab=cfg.vocab,
+        params=sum(t.numel() for t in leaves), weight_bytes=weight_bytes,
+        dtype=str(leaves[0].dtype), init_s=round(time.perf_counter() - t0, 3),
+        batch=B, prompt=T, new_tokens=new, max_len=max_len,
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    tokens, _ = lm_prompt(cfg, B, T, seed)
+    prefill, decode, init_cache = S.make_serve_fns(cfg, batch=B,
+                                                   max_len=max_len,
+                                                   device="cuda")
+    # warm-up at the same shapes (library handles, the allocator's pools)
+    logits, pcache = prefill(params, tokens)
+    cache = S.place_prefill_cache(cfg, pcache, init_cache(), T)
+    decode(params, cache, logits[:, -1].argmax(-1, keepdim=True), T)
+    del logits, pcache, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    logits, pcache = prefill(params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache = S.place_prefill_cache(cfg, pcache, init_cache(), T)
+    del pcache
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    toks, steps = [tok], []
+    finite = torch.isfinite(logits).all()
+    pos = torch.full((1,), T, dtype=torch.long, device="cuda")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(new + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(new):
+        step, cache = decode(params, cache, tok, pos)
+        events[i + 1].record()
+        if i == 0:
+            first = step
+        finite &= torch.isfinite(step).all()
+        tok = step[:, -1].argmax(-1, keepdim=True)
+        toks.append(tok)
+        pos += 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(new)]
+    peak = torch.cuda.max_memory_allocated()
+    out = torch.cat(toks, dim=1)                       # (B, new + 1)
+    if not bool(finite):
+        raise AssertionError("a logit of the full-size run is not finite")
+
+    # the reference's consistency check at T: decode of token T against
+    # the full forward over the prompt and token T. Its tolerance was set
+    # on the reduced configs; at full width bf16 rounding alone puts ~4 %
+    # of the logits outside it, the bf16 forward against its own float32
+    # run as much as decode against the forward (PERF.md, Findings). So
+    # the check runs at the reference's tolerance with the params in
+    # float32 (the KV cache stays bf16), and the timed bf16 run is held
+    # to the LM_BF16_* limits: its distances to the float32 forward, and
+    # decode's no larger than the bf16 forward's.
+    seq = torch.cat([torch.as_tensor(tokens, device="cuda"), out], dim=1)
+    p32 = L.tree_map(lambda t: t.float(), params)
+    prefill32, decode32, init32 = S.make_serve_fns(cfg, batch=B,
+                                                   max_len=T + 1,
+                                                   device="cuda")
+    _, pcache = prefill32(p32, tokens)
+    cache32 = S.place_prefill_cache(cfg, pcache, init32(), T)
+    step32, _ = decode32(p32, cache32, out[:, :1], T)
+    with torch.inference_mode():
+        full32 = LM.lm_forward(p32, seq[:, :T + 1], cfg, last_only=True)
+    del p32, pcache, cache32
+    lm_agree("full_consistency_f32", step32[:, -1], full32[:, -1],
+             arch=cfg.name, position=T)
+    with torch.inference_mode():
+        full_t = LM.lm_forward(params, seq[:, :T + 1], cfg, last_only=True)
+    bf16 = lm_diff("full_consistency_bf16", first[:, -1], full_t[:, -1],
+                   arch=cfg.name, position=T)
+    fwd = lm_diff("full_forward_bf16_vs_f32", full_t[:, -1], full32[:, -1],
+                  arch=cfg.name, position=T)
+    dec = lm_diff("full_decode_bf16_vs_f32", first[:, -1], full32[:, -1],
+                  arch=cfg.name, position=T)
+    del full_t, full32, step32
+    bf16_limits(bf16, fwd, dec)
+    # every token a near-argmax of one forward over prompt + generated,
+    # and the entries decode wrote into the cache that forward's
+    with torch.inference_mode():
+        full, fcache = LM.lm_forward(params, seq[:, :-1], cfg,
+                                     return_cache=True)
+    near_argmax(torch, "full_greedy", full[:, T - 1:], out)
+    cache_written(cache, fcache, T)
+    del full, fcache
+    gen_t0 = time.perf_counter()
+    again = S.greedy_generate(cfg, params, tokens, num_new=new + 1,
+                              max_len=max_len, device="cuda")
+    generate_s = time.perf_counter() - gen_t0
+    if not np.array_equal(again, out.to(torch.int32).cpu().numpy()):
+        raise AssertionError("greedy_generate's tokens differ from the "
+                             "timed loop's")
+
+    kv = cache["stage"]["0"]["k"]
+    kv_bytes = 2 * kv.numel() * kv.element_size()   # k and v, whole Smax
+    decode_bound_ms = (weight_bytes + kv_bytes) / rate * 1e3
+    flops = lm_flops_prefill(cfg, params, B, T)
+    prefill_bound_s = flops / BF16_FLOPS_PER_S
+    med = float(np.median(step_ms))
+    log("lm_serve", arch=cfg.name, prefill_s=round(prefill_s, 6),
+        prefill_tokens_per_s=B * T / prefill_s, prefill_flops=flops,
+        prefill_flop_bound_s=prefill_bound_s,
+        prefill_bound_share=prefill_bound_s / prefill_s,
+        flop_rate="989e12 bf16 dense (H100 SXM data sheet)")
+    log("lm_serve", arch=cfg.name, decode_steps=new,
+        decode_ms_median=med, decode_ms_min=min(step_ms),
+        decode_ms_max=max(step_ms), decode_tokens_per_s=B / (med / 1e3),
+        decode_wall_s=round(decode_s, 6),
+        decode_bytes=weight_bytes + kv_bytes, kv_bytes_read=kv_bytes,
+        decode_bound_ms=decode_bound_ms, stream_bytes_per_s=rate,
+        decode_bound_share=decode_bound_ms / med,
+        decode_bound_ms_3_35=(weight_bytes + kv_bytes) / HBM_BYTES_PER_S
+        * 1e3, generate_s=round(generate_s, 6),
+        generate_tokens_per_s=B * (new + 1) / generate_s)
+    log("lm_serve", arch=cfg.name, memory_allocated_before=before,
+        max_memory_allocated=peak, serving_peak_bytes=peak - before,
+        weight_bytes=weight_bytes, cache_bytes=kv_bytes)
+
+    # (c) one prefill and one decode step (rewriting the last position)
+    # under the profiler
+    profiled(torch, lambda: prefill(params, tokens), host_ops=10,
+             lm=cfg.name, step="prefill")
+    _, busy = profiled(torch, lambda: decode(params, cache, tok,
+                                             max_len - 1),
+                       host_ops=10, lm=cfg.name, step="decode")
+    log("lm_serve", arch=cfg.name, decode_busy_ms=busy * 1e3,
+        layers=cfg.n_layers)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(torch, seed: int, rate: float) -> None:
+    """The lm_serve phase: (a), then (b) and (c)."""
+    phase_lm_reduced(torch, seed)
+    phase_lm_full(torch, seed, rate)
+
+def profiled(torch, fn, host_ops: int = 0, **label):
     """Run ``fn`` once under torch.profiler and log its wall time, the
     device's busy time and idle share over that wall, its launches and
-    the busiest kernels by self device time. Returns ``fn``'s result and
-    the busy seconds."""
+    the busiest kernels by self device time (and, with ``host_ops``, that
+    many operators by self host time). Returns ``fn``'s result and the
+    busy seconds."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1612,6 +1983,16 @@ def profiled(torch, fn, **label):
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log("profile", **label, kernel=repr(e.key[:100]), calls=e.count,
             self_device_ms=round(dev_us(e) / 1e3, 4))
+    if host_ops:
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU]
+        log("profile", **label, host_ops=sum(e.count for e in ops),
+            host_self_ms=round(sum(e.self_cpu_time_total for e in ops)
+                               / 1e3, 4))
+        for e in sorted(ops, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:host_ops]:
+            log("profile", **label, op=repr(e.key[:60]), calls=e.count,
+                self_host_ms=round(e.self_cpu_time_total / 1e3, 4))
     return res, busy
 
 
@@ -1677,13 +2058,17 @@ def main() -> int:
         nvidia_smi=repr(smi), torch=torch.__version__,
         cuda=torch.version.cuda)
     rate = phase_platform(torch)
-    phase_build()
     args = sys.argv[1:]
-    full = "--kernels" not in args
     seed = int(args[args.index("--seed") + 1]) if "--seed" in args else 0
+    if "--lm" in args:
+        phase_lm_serve(torch, seed, rate)
+        return 0
+    phase_build()
+    full = "--kernels" not in args
     records = drive(torch, torch.device("cuda"), rate, full, seed)
     if full:
         phase_dryrun(torch)
+        phase_lm_serve(torch, seed, rate)
     print(json.dumps({"kernels": records}), flush=True)
     if not full:
         return 0

@@ -14,6 +14,10 @@ Layout:
   service/   the query service (``GraphQueryService``: bucketed,
              continuous and preemptible scheduling, plan cache, result
              cache, tracing, metrics)
+  models/    the LM substrate's layers and decoder-only LM (dense GQA
+             family; ``LanguageModel``), with ``configs/`` (the ten
+             assigned architectures) and ``serve/`` (prefill, in-place
+             decode and greedy generation over static KV buffers)
 
 Entry points run on the card unless ``device="cpu"`` is given, where the
 kernels' plain versions run in their place. The package imports neither

@@ -1,7 +1,9 @@
-"""Carrying a compiled graph and query state across the two packages.
+"""Carrying a compiled graph, query state and LM weights across the two
+packages.
 
-There are no weights in a graph engine: what the JAX and torch engines
-share is the compiled :class:`PartitionedGraph` and the query state.
+The JAX and torch graph engines share the compiled
+:class:`PartitionedGraph` and the query state; the LM substrate shares
+its parameter tree.
 
 ``partitioned_graph_from_numpy`` builds the port's ``PartitionedGraph``
 from another one's dataclass fields as numpy arrays (for example
@@ -10,6 +12,9 @@ JAX package's), so both engines can run on the very same layout.
 ``state_to_numpy`` turns a state of tensors back into host numpy in the
 JAX layout: ``(P, Vm)`` per-vertex shard arrays, 0-d scalars, or a
 leading query axis where the state has one.
+``lm_params_from_numpy`` turns an LM parameter tree of numpy arrays (the
+JAX package's params through ``jax.tree.map(np.asarray, params)``) into
+the port's tree of tensors, key for key and shape for shape.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
-__all__ = ["partitioned_graph_from_numpy", "state_to_numpy"]
+__all__ = ["lm_params_from_numpy", "partitioned_graph_from_numpy",
+           "state_to_numpy"]
 
 
 def partitioned_graph_from_numpy(
@@ -49,3 +55,41 @@ def partitioned_graph_from_numpy(
 def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Tensors (on any device) -> host numpy arrays, same keys."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A float32 or bfloat16 array as a tensor of its dtype. bfloat16
+    comes from ``ml_dtypes`` (JAX's numpy type), which the port does not
+    import: its bits pass as uint16."""
+    if arr.dtype == np.float32:
+        return torch.from_numpy(np.array(arr))
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16)
+        return torch.from_numpy(np.array(bits)).view(torch.bfloat16)
+    raise ValueError(f"LM params are float32 or bfloat16, not {arr.dtype}")
+
+
+def lm_params_from_numpy(cfg, tree, device=None):
+    """The port's LM params for ``cfg`` from a nested dict of numpy arrays
+    in the reference's layout. Every key and shape must be
+    ``models.lm.lm_spec(cfg)``'s; each leaf keeps its dtype (float32 or
+    bfloat16). Lands on ``device``: the card unless "cpu" is asked for."""
+    from .core.engine import resolve_device
+    from .models import lm as LM
+    device = resolve_device(device)
+
+    def walk(spec, node, path):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict) or set(node) != set(spec):
+                have = sorted(node) if isinstance(node, dict) else node
+                raise ValueError(f"params{path}: keys {have}, expected "
+                                 f"{sorted(spec)}")
+            return {k: walk(spec[k], node[k], f"{path}[{k!r}]")
+                    for k in spec}
+        arr = np.asarray(node)
+        if tuple(arr.shape) != tuple(spec.shape):
+            raise ValueError(f"params{path}: shape {arr.shape}, expected "
+                             f"{spec.shape}")
+        return _leaf_tensor(arr).to(device)
+
+    return walk(LM.lm_spec(cfg), tree, "")

@@ -1,0 +1,444 @@
+"""Decoder-only LM assembly, in PyTorch (the port of ``repro.models.lm``).
+
+A model is a sequence of *blocks* described by :class:`LayerKind`
+(temporal mixer + channel mixer): a repeating ``block_pattern`` with
+params stacked on a leading ``(repeats, ...)`` axis, plus an optional
+non-repeating ``tail``. The parameter tree keeps the reference's keys and
+layout, so the JAX package's params convert key for key
+(``repro_torch.convert.lm_params_from_numpy``).
+
+Ported: the dense GQA family (``mixer="attn"`` with ``ffn="mlp"`` or
+``"none"``), with post-norms, sliding windows, per-kind ``rope_base``,
+logit softcaps, padded vocabularies and the VLM prefix (qwen3, qwen2,
+minitron, gemma3, internvl2's backbone). The other mixers (``mla``,
+``mlstm``, ``slstm``, ``rglru``), ``ffn="moe"`` and ``family="encdec"``
+raise ``NotImplementedError``: ROADMAP §1 item 4 ports them in a later
+slice. One device, no mesh.
+
+The functional core (``lm_forward``, ``lm_decode_step``) takes the nested
+dict of tensors; :class:`LanguageModel` is the ``nn.Module`` that holds
+that tree.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.engine import resolve_device
+from . import layers as L
+from .layers import PSpec
+
+__all__ = ["LayerKind", "MoeCfg", "MlaCfg", "ArchCfg", "LanguageModel",
+           "is_ported", "check_device", "block_spec", "lm_spec",
+           "num_params", "lm_forward", "lm_decode_step", "init_cache",
+           "abstract_cache"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    mixer: str = "attn"          # attn | mla | mlstm | slstm | rglru
+    ffn: str = "mlp"             # mlp | moe | none
+    window: Optional[int] = None  # sliding window for attn
+    rope_base: float = 10000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeCfg:
+    n_routed: int
+    n_shared: int
+    topk: int
+    d_ff_expert: int
+    renormalize: bool = True
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaCfg:
+    q_lora: int = 1536
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchCfg:
+    name: str
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    block_pattern: Tuple[LayerKind, ...]
+    repeats: int
+    tail: Tuple[LayerKind, ...] = ()
+    # attention details
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    act: str = "silu"            # mlp activation: silu | gelu | relu2
+    logit_cap: Optional[float] = None
+    # norms / embeddings
+    norm_plus_one: bool = False  # gemma-style (1 + w) RMSNorm, zero-init
+    post_norms: bool = False     # gemma-style sandwich norms
+    embed_scale: bool = False
+    tie_embeddings: bool = True
+    # family extras
+    moe: Optional[MoeCfg] = None
+    mla: Optional[MlaCfg] = None
+    xlstm_heads: int = 4
+    lru_width: Optional[int] = None
+    prefix_len: int = 0          # VLM / multimodal stub prefix tokens
+    # family plumbing
+    family: str = "lm"           # lm | encdec | vlm
+    n_enc: int = 0               # encoder layers (encdec only)
+    n_dec: int = 0               # decoder layers (encdec only)
+    # runtime
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    remat: bool = True
+    long_context_ok: bool = False  # sub-quadratic: eligible for long_500k
+    # embedding/logits table padding (padded ids masked from the softmax)
+    vocab_pad_to: int = 0
+    # the reference's training and sharding levers; serving reads
+    # attn_block_skip only
+    accum_bf16: bool = False
+    attn_block_skip: bool = False
+    seq_shard_acts: bool = False
+    scan_unroll: bool = False
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.block_pattern) * self.repeats + len(self.tail)
+
+    @property
+    def vocab_padded(self) -> int:
+        if not self.vocab_pad_to:
+            return self.vocab
+        m = self.vocab_pad_to
+        return -(-self.vocab // m) * m
+
+
+# What is not ported yet, and the ROADMAP entry that ports it.
+_LATER = "ROADMAP §1 item 4, slice 1 (the other serving mixers)"
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} is not ported to repro_torch yet: "
+                               f"{_LATER}")
+
+
+def _check_kind(kind: LayerKind) -> None:
+    if kind.mixer != "attn":
+        raise _unported(f"mixer={kind.mixer!r}")
+    if kind.ffn not in ("mlp", "none"):
+        raise _unported(f"ffn={kind.ffn!r}")
+
+
+def _check_ported(cfg: ArchCfg) -> None:
+    if cfg.family == "encdec":
+        raise _unported(f"family='encdec' ({cfg.name})")
+    for kind in cfg.block_pattern + cfg.tail:
+        _check_kind(kind)
+
+
+def is_ported(cfg: ArchCfg) -> bool:
+    """Whether the port can build and run ``cfg``."""
+    try:
+        _check_ported(cfg)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def check_device(what: str, have: torch.device,
+                 device: torch.device) -> None:
+    """Raise unless ``have`` is ``device``; ``what`` names what lies on
+    ``have`` ("params lie")."""
+    if have.type != device.type or (device.index is not None
+                                    and have.index != device.index):
+        raise ValueError(f"{what} on {have}, not on the serving device "
+                         f"{device}: move it there first")
+
+
+# ---------------------------------------------------------------------------
+# spec
+# ---------------------------------------------------------------------------
+
+def _norm_spec(cfg: ArchCfg, stack):
+    st = (stack,) if stack else ()
+    pre = "stack," if stack else ""
+    init = "zeros" if cfg.norm_plus_one else "ones"
+    return PSpec(st + (cfg.d_model,), pre + ".", init=init)
+
+
+def block_spec(kind: LayerKind, cfg: ArchCfg,
+               stack: Optional[int] = None) -> Dict[str, Any]:
+    _check_kind(kind)
+    s: Dict[str, Any] = {
+        "mix_norm": _norm_spec(cfg, stack),
+        "attn": L.attn_spec(cfg.d_model, cfg.n_heads, cfg.n_kv,
+                            cfg.head_dim, qkv_bias=cfg.qkv_bias,
+                            qk_norm=cfg.qk_norm, stack=stack),
+    }
+    if cfg.post_norms:
+        s["mix_post_norm"] = _norm_spec(cfg, stack)
+    if kind.ffn == "mlp":
+        s["ffn_norm"] = _norm_spec(cfg, stack)
+        s["mlp"] = L.mlp_spec(cfg.d_model, cfg.d_ff,
+                              gated=cfg.act in ("silu", "gelu"),
+                              stack=stack)
+        if cfg.post_norms:
+            s["ffn_post_norm"] = _norm_spec(cfg, stack)
+    return s
+
+
+def lm_spec(cfg: ArchCfg) -> Dict[str, Any]:
+    _check_ported(cfg)
+    s: Dict[str, Any] = {
+        "embed": L.embed_spec(cfg.vocab_padded, cfg.d_model),
+        "final_norm": _norm_spec(cfg, None),
+        "stage": {str(i): block_spec(k, cfg, stack=cfg.repeats)
+                  for i, k in enumerate(cfg.block_pattern)},
+    }
+    if cfg.tail:
+        s["tail"] = {str(i): block_spec(k, cfg, stack=None)
+                     for i, k in enumerate(cfg.tail)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = PSpec((cfg.d_model, cfg.vocab_padded), ".,vocab",
+                             fan_in=cfg.d_model)
+    return s
+
+
+def num_params(cfg: ArchCfg) -> int:
+    return L.param_count(lm_spec(cfg))
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+def _norm(cfg, x, w):
+    return L.rmsnorm(x, w, plus_one=cfg.norm_plus_one)
+
+
+def _apply_ffn(kind, p, x, cfg):
+    if kind.ffn == "none":
+        return x
+    h = L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]), act=cfg.act)
+    if cfg.post_norms:
+        h = _norm(cfg, h, p["ffn_post_norm"])
+    return x + L.grad_cast_bf16(h)
+
+
+def block_full(kind: LayerKind, p, x, cfg: ArchCfg):
+    """Prefill through one block. Returns (x, cache_entry)."""
+    _check_kind(kind)
+    h, (k, v) = L.gqa_full(
+        p["attn"], _norm(cfg, x, p["mix_norm"]), rope_base=kind.rope_base,
+        window=kind.window, qk_norm=cfg.qk_norm, logit_cap=cfg.logit_cap,
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+        skip_masked_blocks=cfg.attn_block_skip)
+    if cfg.post_norms:
+        h = _norm(cfg, h, p["mix_post_norm"])
+    x = x + L.grad_cast_bf16(h)
+    return _apply_ffn(kind, p, x, cfg), {"k": k, "v": v}
+
+
+def block_decode(kind: LayerKind, p, x, cache, pos, cfg: ArchCfg):
+    """Single-token decode through one block; ``cache`` (this layer's
+    ``k``/``v`` buffers) is written in place at ``pos``. Returns (x,
+    cache)."""
+    _check_kind(kind)
+    h, ck, cv = L.gqa_decode(
+        p["attn"], _norm(cfg, x, p["mix_norm"]), cache["k"], cache["v"],
+        pos, rope_base=kind.rope_base, window=kind.window,
+        qk_norm=cfg.qk_norm, logit_cap=cfg.logit_cap)
+    if cfg.post_norms:
+        h = _norm(cfg, h, p["mix_post_norm"])
+    x = x + h
+    return _apply_ffn(kind, p, x, cfg), {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def _block_cache_shapes(kind: LayerKind, cfg: ArchCfg, batch: int,
+                        max_len: int):
+    sh = (batch, max_len, cfg.n_kv, cfg.head_dim)
+    return {"k": (sh, torch.bfloat16), "v": (sh, torch.bfloat16)}
+
+
+def _make_cache(cfg: ArchCfg, batch: int, max_len: int, fn):
+    """fn(shape_without_stack, dtype, stacked: bool) -> leaf."""
+    _check_ported(cfg)
+    out = {"stage": {}}
+    for i, kind in enumerate(cfg.block_pattern):
+        shapes = _block_cache_shapes(kind, cfg, batch, max_len)
+        out["stage"][str(i)] = {
+            k: fn(((cfg.repeats,) + sh), dt) for k, (sh, dt) in shapes.items()}
+    if cfg.tail:
+        out["tail"] = {}
+        for i, kind in enumerate(cfg.tail):
+            shapes = _block_cache_shapes(kind, cfg, batch, max_len)
+            out["tail"][str(i)] = {
+                k: fn(sh, dt) for k, (sh, dt) in shapes.items()}
+    return out
+
+
+def init_cache(cfg: ArchCfg, batch: int, max_len: int, *, device):
+    """Zeroed KV buffers: (repeats, B, max_len, Hkv, hd) bf16 per stage
+    block, (B, max_len, Hkv, hd) per tail block."""
+    return _make_cache(cfg, batch, max_len, lambda sh, dt: torch.zeros(
+        sh, dtype=dt, device=device))
+
+
+def abstract_cache(cfg: ArchCfg, batch: int, max_len: int):
+    """The cache's ``meta`` tensors: no allocation."""
+    return _make_cache(cfg, batch, max_len, lambda sh, dt: torch.empty(
+        sh, dtype=dt, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# forward / decode
+# ---------------------------------------------------------------------------
+
+def _layer(stage_tree, i: int):
+    """Layer ``i``'s views of a stacked (repeats, ...) tree."""
+    return L.tree_map(lambda a: a[i], stage_tree)
+
+
+def lm_forward(params, tokens, cfg: ArchCfg, *, prefix_embeds=None,
+               return_cache: bool = False, last_only: bool = False):
+    """tokens: (B, S) int64 tensor. prefix_embeds: optional (B, Sp, D)
+    stub prefix (VLM), placed before the tokens. Returns float32 logits
+    (B, S_total, V), or (B, 1, V) with ``last_only``, and with
+    ``return_cache`` the prefill KV caches: stacked (repeats, B, S_total,
+    Hkv, hd) per stage block, k roped, not padded to a max_len."""
+    _check_ported(cfg)
+    x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+
+    stage_caches = [dict() for _ in cfg.block_pattern]
+    for r in range(cfg.repeats):
+        x = L.grad_cast_bf16(x)
+        layer = _layer(params["stage"], r)
+        for i, kind in enumerate(cfg.block_pattern):
+            x, c = block_full(kind, layer[str(i)], x, cfg)
+            if return_cache:
+                for name, t in c.items():
+                    stage_caches[i].setdefault(name, []).append(t)
+    caches = None
+    if return_cache:
+        caches = {"stage": {str(i): {k: torch.stack(ts) for k, ts in
+                                     c.items()}
+                            for i, c in enumerate(stage_caches)}}
+
+    if cfg.tail:
+        if return_cache:
+            caches["tail"] = {}
+        for i, kind in enumerate(cfg.tail):
+            x, c = block_full(kind, params["tail"][str(i)], x, cfg)
+            if return_cache:
+                caches["tail"][str(i)] = c
+
+    if last_only:
+        x = x[:, -1:]  # serve prefill: only the last position's logits
+    x = _norm(cfg, x, params["final_norm"])
+    logits = _logits(params, x, cfg)
+    return (logits, caches) if return_cache else logits
+
+
+def _logits(params, x, cfg: ArchCfg):
+    if cfg.tie_embeddings:
+        logits = L.logits_apply(params["embed"], x, transpose=True,
+                                cap=cfg.logit_cap)
+    else:
+        logits = L.logits_apply(params["lm_head"], x, transpose=False,
+                                cap=cfg.logit_cap)
+    if cfg.vocab_padded != cfg.vocab:
+        # mask padding ids out of the softmax
+        vid = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(vid < cfg.vocab, logits, -1e9)
+    return logits
+
+
+def lm_decode_step(params, cache, tokens, pos, cfg: ArchCfg):
+    """tokens: (B, 1) int64; pos: the position written (an int or a 0-d or
+    one-element int tensor on the params' device). Writes every layer's
+    new k/v into ``cache`` in place (the reference donates its cache) and
+    returns (logits (B, 1, V) float32, cache)."""
+    _check_ported(cfg)
+    x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
+    for r in range(cfg.repeats):
+        p_r = _layer(params["stage"], r)
+        c_r = _layer(cache["stage"], r)
+        for j, kind in enumerate(cfg.block_pattern):
+            x, _ = block_decode(kind, p_r[str(j)], x, c_r[str(j)], pos, cfg)
+    for i, kind in enumerate(cfg.tail):
+        x, _ = block_decode(kind, params["tail"][str(i)], x,
+                            cache["tail"][str(i)], pos, cfg)
+    x = _norm(cfg, x, params["final_norm"])
+    return _logits(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# the module
+# ---------------------------------------------------------------------------
+
+class _Tree(nn.Module):
+    """A nested dict of tensors as a module tree (frozen parameters)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def tree(self) -> Dict[str, Any]:
+        out = {k: m.tree() for k, m in self.named_children()}
+        out.update(self.named_parameters(recurse=False))
+        return out
+
+
+class LanguageModel(nn.Module):
+    """The parameter tree of ``cfg`` as an ``nn.Module`` over the
+    functional core. ``params`` is a tree of the reference's keys and
+    layout (from ``convert.lm_params_from_numpy``), or None for a random
+    init from ``generator`` (``layers.init_params``). Runs on the card
+    unless ``device="cpu"`` is asked for; ``params`` and ``generator``
+    must lie on that device."""
+
+    def __init__(self, cfg: ArchCfg, params: Optional[Dict[str, Any]] = None,
+                 *, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        if params is None and generator is None:
+            raise ValueError("give params or a generator")
+        self.device = resolve_device(device)
+        if params is None:
+            check_device("the generator lies", generator.device, self.device)
+            params = L.init_params(lm_spec(cfg), generator=generator)
+        check_device("params lie", params["embed"].device, self.device)
+        self.cfg = cfg
+        self.weights = _Tree(params)
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return self.weights.tree()
+
+    def forward(self, tokens, *, prefix_embeds=None,
+                return_cache: bool = False, last_only: bool = False):
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        return lm_forward(self.params, tokens, self.cfg,
+                          prefix_embeds=prefix_embeds,
+                          return_cache=return_cache, last_only=last_only)

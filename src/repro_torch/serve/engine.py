@@ -1,0 +1,105 @@
+"""Serving engine: batched prefill + decode with static cache buffers (the
+port of ``repro.serve.engine``).
+
+``make_serve_fns(cfg, batch=, max_len=)`` builds the pair
+  prefill(params, tokens, prefix=None) -> (last-position logits, cache)
+  decode(params, cache, tokens, pos)   -> (logits, cache)
+and the cache's allocator. There is no jit: PyTorch runs eagerly, each
+call under ``torch.inference_mode()``. ``decode`` writes the new k/v into
+the cache in place and returns the same buffers (the reference donates
+its cache to the jitted step). KV buffers are allocated at ``max_len``
+on the serving device.
+
+Every entry point runs on the card unless the caller passes
+``device="cpu"``; it raises when there is no card, and when the params
+lie on another device than the one it serves on.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.engine import resolve_device
+from ..models import lm as LM
+
+__all__ = ["make_serve_fns", "place_prefill_cache", "greedy_generate"]
+
+
+def _tokens(tokens, device) -> torch.Tensor:
+    return torch.as_tensor(tokens, dtype=torch.long, device=device)
+
+
+def place_prefill_cache(cfg: LM.ArchCfg, prefill_cache, buffers, seq_len):
+    """Copy prefill-produced caches (length S along the sequence axis)
+    into the ``max_len`` buffers at offset 0, in place; returns
+    ``buffers``. ``seq_len`` is the reference's argument, unused there
+    too: the shapes say where to paste."""
+    def merge(buf, new):
+        if buf.shape != new.shape and buf.ndim == new.ndim:
+            buf[tuple(slice(0, n) for n in new.shape)].copy_(new)
+        else:
+            buf.copy_(new)
+        return buf
+    with torch.inference_mode():
+        return LM.L.tree_map(merge, buffers, prefill_cache)
+
+
+def make_serve_fns(cfg: LM.ArchCfg, *, batch: int, max_len: int,
+                   device=None, prefix_embeds: bool = False):
+    """Returns (prefill_fn, decode_fn, init_cache_fn) on ``device`` (the
+    card unless "cpu" is asked for). ``prefix_embeds`` is the reference's
+    flag and changes nothing: a prefix is passed to ``prefill_fn``."""
+    device = resolve_device(device)
+    LM._check_ported(cfg)
+
+    def init_cache_fn():
+        return LM.init_cache(cfg, batch, max_len, device=device)
+
+    def prefill_fn(params, tokens, prefix=None):
+        LM.check_device("params lie", params["embed"].device, device)
+        with torch.inference_mode():
+            if prefix is not None:
+                prefix = torch.as_tensor(prefix, device=device)
+            return LM.lm_forward(params, _tokens(tokens, device), cfg,
+                                 prefix_embeds=prefix, return_cache=True,
+                                 last_only=True)
+
+    def decode_fn(params, cache, tokens, pos):
+        LM.check_device("params lie", params["embed"].device, device)
+        with torch.inference_mode():
+            return LM.lm_decode_step(params, cache, _tokens(tokens, device),
+                                     pos, cfg)
+
+    return prefill_fn, decode_fn, init_cache_fn
+
+
+def greedy_generate(cfg: LM.ArchCfg, params, prompt_tokens, *,
+                    num_new: int, max_len: Optional[int] = None,
+                    prefix=None, device=None) -> np.ndarray:
+    """End-to-end batched greedy decoding (prefill -> ``num_new`` - 1
+    decode steps); returns the (B, num_new) new tokens as numpy.
+
+    With a VLM ``prefix`` (B, Sp, D) the prompt's cache holds Sp + S
+    positions, so decoding starts at position Sp + S and the default
+    ``max_len`` counts the prefix too (ROADMAP §3: the reference starts
+    at S and sizes its buffers without the prefix)."""
+    B, S = prompt_tokens.shape
+    start = S + (0 if prefix is None else prefix.shape[1])
+    max_len = max_len or (start + num_new + 1)
+    prefill, decode, init_cache = make_serve_fns(
+        cfg, batch=B, max_len=max_len, device=device)
+    logits, pre_cache = prefill(params, prompt_tokens, prefix)
+    cache = place_prefill_cache(cfg, pre_cache, init_cache(), start)
+    tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
+    out = [tok]
+    # the position stays on the device: a host int would be copied up
+    # each step, and that copy waits for the step before it
+    pos = torch.full((1,), start, dtype=torch.long, device=tok.device)
+    for _ in range(num_new - 1):
+        logits, cache = decode(params, cache, tok, pos)
+        tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
+        out.append(tok)
+        pos += 1
+    return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()

@@ -5,7 +5,8 @@ card: its answers, an offloaded engine's dispatch (still K1 on the card)
 and bucketed and continuous dispatch on one engine at the same time; the
 shard engine's five exchanges in both schedules, its lane stepper, an
 offloaded shard engine (still K2 on the card) and a shard class of the
-service.
+service; the LM serving path (reduced dense configs) on the card against
+the CPU, its prefill/decode consistency, and its device rules.
 
 Marked ``gpu``; each test decides inside itself whether there is a card
 and skips without one. The file imports no JAX, so it runs on a machine
@@ -27,6 +28,11 @@ from repro_torch.kernels import edge_gather, ops
 from repro_torch.kernels.layout import (WORK_TILES, StackedLayout,
                                        build_layout, stack_layouts,
                                        stacked_layout)
+from repro_torch import configs as LMC
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models import layers as LML
+from repro_torch.models import lm as LMM
+from repro_torch.serve import engine as LMS
 from repro_torch.service import GraphQueryService, QueryRequest
 
 # The tensors here are tiny: one CPU thread keeps torch's thread pool off
@@ -502,3 +508,104 @@ def test_cuda_shard_service_matches_engine(scheduling):
         for key in want.state:
             np.testing.assert_array_equal(got.state[key], want.state[key])
     assert svc.stats_snapshot()["plan_traces"] == traces
+
+
+# tests/test_models.py's prefill/decode tolerance for bf16 logits
+LM_TOL = dict(rtol=0.1, atol=0.75)
+
+
+def _lm(arch, seed=0):
+    cfg = LMC.get(arch, reduced=True)
+    cpu = LML.init_params(LMM.lm_spec(cfg),
+                          generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, cfg.vocab, (2, 13))
+    prefix = None
+    if cfg.family == "vlm":
+        prefix = torch.from_numpy(rng.standard_normal(
+            (2, cfg.prefix_len, cfg.d_model)).astype(np.float32)).to(
+                torch.bfloat16)
+    return cfg, cpu, tokens, prefix
+
+
+def _lm_agree(got, want):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **LM_TOL)
+    assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(LMC.DENSE_IDS))
+def test_cuda_lm_serving_matches_cpu(arch):
+    """Prefill and one decode step of a reduced dense config on the card
+    against the same bf16 weights on the CPU."""
+    _need_card()
+    cfg, cpu, tokens, prefix = _lm(arch)
+    start = 12 + (0 if prefix is None else cfg.prefix_len)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = LML.tree_map(lambda t: t.to(dev), cpu)
+        pre = None if prefix is None else prefix.to(dev)
+        prefill, decode, init_cache = LMS.make_serve_fns(
+            cfg, batch=2, max_len=start + 4, device=dev)
+        logits, pcache = prefill(params, tokens[:, :12], pre)
+        cache = LMS.place_prefill_cache(cfg, pcache, init_cache(), 12)
+        step, cache = decode(params, cache, tokens[:, 12:], start)
+        out[dev] = (logits, step, cache)
+    logits, step, cache = out["cuda"]
+    assert logits.device.type == step.device.type == "cuda"
+    assert cache["stage"]["0"]["k"].device.type == "cuda"
+    _lm_agree(logits, out["cpu"][0])
+    _lm_agree(step, out["cpu"][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-27b"])
+def test_cuda_lm_prefill_decode_consistency(arch):
+    """The reference's own check on the card: decode at position T from
+    the prefill cache against the full forward at T."""
+    _need_card()
+    cfg, cpu, tokens, _ = _lm(arch, seed=1)
+    params = LML.tree_map(lambda t: t.cuda(), cpu)
+    full = LMM.lm_forward(params, torch.from_numpy(tokens).cuda(), cfg,
+                          last_only=True)
+    prefill, decode, init_cache = LMS.make_serve_fns(cfg, batch=2,
+                                                     max_len=20)
+    _, pcache = prefill(params, tokens[:, :12])
+    cache = LMS.place_prefill_cache(cfg, pcache, init_cache(), 12)
+    step, _ = decode(params, cache, tokens[:, 12:], 12)
+    _lm_agree(step[:, -1], full[:, -1])
+    gen = LMS.greedy_generate(cfg, params, tokens[:, :12], num_new=5)
+    assert gen.shape == (2, 5) and ((gen >= 0) & (gen < cfg.vocab)).all()
+
+
+@pytest.mark.gpu
+def test_cuda_lm_serving_defaults_to_the_card():
+    _need_card()
+    cfg, cpu, tokens, _ = _lm("qwen3-4b")
+    _, _, init_cache = LMS.make_serve_fns(cfg, batch=2, max_len=16)
+    assert init_cache()["stage"]["0"]["k"].device.type == "cuda"
+    tree = LML.tree_map(lambda t: t.float().numpy(), cpu)
+    on_card = lm_params_from_numpy(cfg, tree)
+    assert on_card["embed"].device.type == "cuda"
+    assert LMS.greedy_generate(cfg, on_card, tokens[:, :8],
+                               num_new=3).shape == (2, 3)
+
+
+@pytest.mark.gpu
+def test_cuda_lm_params_left_on_the_cpu_raise():
+    """Converted params left on the CPU make a card call raise, not run
+    on the CPU."""
+    _need_card()
+    cfg, cpu, tokens, _ = _lm("qwen3-4b")
+    tree = LML.tree_map(lambda t: t.float().numpy(), cpu)
+    left = lm_params_from_numpy(cfg, tree, device="cpu")
+    prefill, decode, init_cache = LMS.make_serve_fns(cfg, batch=2,
+                                                     max_len=16)
+    with pytest.raises(ValueError, match="params lie on cpu"):
+        prefill(left, tokens[:, :8])
+    with pytest.raises(ValueError, match="params lie on cpu"):
+        decode(left, init_cache(), tokens[:, :1], 8)
+    with pytest.raises(ValueError, match="params lie on cpu"):
+        LMS.greedy_generate(cfg, left, tokens[:, :8], num_new=2)

@@ -18,6 +18,11 @@ from repro_torch.core import partition as TPT
 from repro_torch.core.engine import Engine
 from repro_torch.core.engine_shardmap import ShardEngine
 from repro_torch.core.mesh import LocalMesh
+from repro_torch import configs as LMC
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models import layers as LML
+from repro_torch.models import lm as LMM
+from repro_torch.serve import engine as LMS
 
 # The tensors here are tiny: one CPU thread keeps torch's thread pool off
 # the cores that parallel test workers share.
@@ -83,3 +88,33 @@ def test_shard_engine_defaults_to_the_card(monkeypatch):
     res = ShardEngine(TA.bfs(), pg, mesh=LocalMesh(2, "cpu"), tile_e=16,
                       tile_r=8).run()
     assert res.state["parent"][0] == 0 and np.all(res.state["parent"] >= -1)
+
+
+def test_lm_serving_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LMC.get("qwen3-4b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMS.make_serve_fns(cfg, batch=1, max_len=8)
+    p = LML.init_params(LMM.lm_spec(cfg),
+                       generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMS.greedy_generate(cfg, p, np.ones((1, 4), np.int32), num_new=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_numpy(cfg, LML.tree_map(
+            lambda t: t.float().numpy(), p))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMM.LanguageModel(cfg, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMM.LanguageModel(cfg, p)
+    # params on another device than the one served on
+    prefill, decode, init_cache = LMS.make_serve_fns(cfg, batch=1, max_len=8,
+                                                    device="meta")
+    with pytest.raises(ValueError, match="params lie on cpu"):
+        prefill(p, np.ones((1, 4), np.int32))
+    with pytest.raises(ValueError, match="params lie on cpu"):
+        decode(p, init_cache(), np.ones((1, 1), np.int32), 4)
+    with pytest.raises(ValueError, match="params lie on cpu"):
+        LMM.LanguageModel(cfg, p, device="meta")
+    with pytest.raises(ValueError, match="the generator lies on cpu"):
+        LMM.LanguageModel(cfg, generator=torch.Generator().manual_seed(0),
+                          device="meta")

@@ -1,19 +1,17 @@
 """Assigned-architecture registry (the port's copy of ``repro.configs``):
 ``get(name)`` resolves an arch id to its full or reduced ``ArchCfg``.
 
-Ten LM-family architectures, each a dataclass literal. The dense GQA five
-(qwen3-4b, qwen2-72b, minitron-4b, gemma3-27b, internvl2-76b) run in the
-port; the others' mixers raise ``NotImplementedError`` when a model is
-built from them."""
+Ten LM-family architectures, each a dataclass literal, every one served
+by the port. The id lists below group them by the blocks they run."""
 from __future__ import annotations
 
 from importlib import import_module
 from typing import Dict
 
-from ..models.lm import is_ported
 from .common import SHAPES, Shape, input_specs, reduce_cfg, shape_applicable
 
-__all__ = ["ARCH_IDS", "DENSE_IDS", "SHAPES", "Shape", "all_configs", "get",
+__all__ = ["ARCH_IDS", "DENSE_IDS", "ENCDEC_IDS", "MLA_IDS", "MOE_IDS",
+           "RECURRENT_IDS", "SHAPES", "Shape", "all_configs", "get",
            "input_specs", "reduce_cfg", "shape_applicable"]
 
 _MODULES = {
@@ -37,8 +35,27 @@ def get(name: str, *, reduced: bool = False):
     return mod.reduced() if reduced else mod.config()
 
 
-# The archs the port runs: every block mixer="attn" with ffn="mlp".
-DENSE_IDS = tuple(a for a in ARCH_IDS if is_ported(get(a)))
+def _kinds(name: str):
+    cfg = get(name)
+    return cfg, cfg.block_pattern + cfg.tail
+
+
+def _ids(pred) -> tuple:
+    return tuple(a for a in ARCH_IDS if pred(*_kinds(a)))
+
+
+# Decoder-only dense GQA: every block mixer="attn" with ffn "mlp" or "none".
+DENSE_IDS = _ids(lambda cfg, kinds: cfg.family != "encdec" and all(
+    k.mixer == "attn" and k.ffn in ("mlp", "none") for k in kinds))
+# A block with routed experts (ffn="moe").
+MOE_IDS = _ids(lambda cfg, kinds: any(k.ffn == "moe" for k in kinds))
+# A block with latent attention (mixer="mla").
+MLA_IDS = _ids(lambda cfg, kinds: any(k.mixer == "mla" for k in kinds))
+# A block with a recurrent mixer (rglru, mlstm, slstm).
+RECURRENT_IDS = _ids(lambda cfg, kinds: any(
+    k.mixer in ("rglru", "mlstm", "slstm") for k in kinds))
+# Encoder-decoder (models/encdec.py).
+ENCDEC_IDS = _ids(lambda cfg, kinds: cfg.family == "encdec")
 
 
 def all_configs(reduced: bool = False) -> Dict[str, object]:

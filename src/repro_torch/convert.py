@@ -14,7 +14,9 @@ JAX layout: ``(P, Vm)`` per-vertex shard arrays, 0-d scalars, or a
 leading query axis where the state has one.
 ``lm_params_from_numpy`` turns an LM parameter tree of numpy arrays (the
 JAX package's params through ``jax.tree.map(np.asarray, params)``) into
-the port's tree of tensors, key for key and shape for shape.
+the port's tree of tensors, key for key and shape for shape: the
+decoder-only tree of ``models.lm.lm_spec`` or, for an encoder-decoder
+config, the ``enc``/``dec``/``cross`` tree of ``models.encdec``.
 """
 from __future__ import annotations
 
@@ -71,10 +73,14 @@ def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
 
 def lm_params_from_numpy(cfg, tree, device=None):
     """The port's LM params for ``cfg`` from a nested dict of numpy arrays
-    in the reference's layout. Every key and shape must be
-    ``models.lm.lm_spec(cfg)``'s; each leaf keeps its dtype (float32 or
+    in the reference's layout. Every key and shape must be the spec's:
+    ``models.encdec.encdec_spec(cfg, cfg.n_enc, cfg.n_dec)`` when ``cfg``
+    is an encoder-decoder and the tree holds an ``enc`` stack, else
+    ``models.lm.lm_spec(cfg)`` (the decoder-only model, as the reference
+    builds from any config). Each leaf keeps its dtype (float32 or
     bfloat16). Lands on ``device``: the card unless "cpu" is asked for."""
     from .core.engine import resolve_device
+    from .models import encdec as ED
     from .models import lm as LM
     device = resolve_device(device)
 
@@ -92,4 +98,8 @@ def lm_params_from_numpy(cfg, tree, device=None):
                              f"{spec.shape}")
         return _leaf_tensor(arr).to(device)
 
-    return walk(LM.lm_spec(cfg), tree, "")
+    if cfg.family == "encdec" and isinstance(tree, dict) and "enc" in tree:
+        spec = ED.encdec_spec(cfg, cfg.n_enc, cfg.n_dec)
+    else:
+        spec = LM.lm_spec(cfg)
+    return walk(spec, tree, "")

@@ -1,4 +1,5 @@
 """The LM substrate's models (the port of ``repro.models``): the shared
-layer library and the decoder-only LM, dense GQA family."""
-from . import layers, lm  # noqa: F401
+layer library, the decoder-only LM and its mixers (MoE, MLA, RG-LRU,
+mLSTM/sLSTM), and the encoder-decoder."""
+from . import encdec, layers, lm, mla, moe, rglru, ssm  # noqa: F401
 from .lm import LanguageModel  # noqa: F401

@@ -1,0 +1,189 @@
+"""Encoder-decoder assembly (seamless-m4t-medium's backbone), in PyTorch
+(the port of ``repro.models.encdec``).
+
+The modality frontend is a stub, as in the reference: the encoder takes
+precomputed frame embeddings (B, T_enc, d_model). Encoder layers are
+non-causal self-attention + MLP; decoder layers are causal
+self-attention, cross-attention over the encoder output, then MLP.
+Serving has no decoder prefill: the cross-attention KV of every decoder
+layer is computed once from the encoder output (``fill_cross_cache``),
+then ``encdec_decode_step`` decodes one token at a time from position 0,
+its self-attention KV growing in the cache and its cross-attention
+scored in float32 against the static encoder KV.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from . import layers as L
+from .layers import PSpec
+from .lm import ArchCfg, _logits, _norm
+
+__all__ = ["encdec_spec", "encode", "decode_train", "encdec_forward",
+           "encdec_decode_step", "init_encdec_cache", "abstract_encdec_cache",
+           "fill_cross_cache"]
+
+
+def _norm_spec(cfg: ArchCfg, stack):
+    st = (stack,) if stack else ()
+    pre = "stack," if stack else ""
+    return PSpec(st + (cfg.d_model,), pre + ".", init="ones")
+
+
+def _block(cfg: ArchCfg, stack: int, *, cross: bool) -> Dict[str, Any]:
+    s = {
+        "mix_norm": _norm_spec(cfg, stack),
+        "attn": L.attn_spec(cfg.d_model, cfg.n_heads, cfg.n_kv,
+                            cfg.head_dim, stack=stack),
+        "ffn_norm": _norm_spec(cfg, stack),
+        "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, gated=False, stack=stack),
+    }
+    if cross:
+        s["cross_norm"] = _norm_spec(cfg, stack)
+        s["cross"] = L.attn_spec(cfg.d_model, cfg.n_heads, cfg.n_kv,
+                                 cfg.head_dim, stack=stack)
+    return s
+
+
+def encdec_spec(cfg: ArchCfg, n_enc: int, n_dec: int) -> Dict[str, Any]:
+    return {
+        "embed": L.embed_spec(cfg.vocab_padded, cfg.d_model),
+        "enc": _block(cfg, n_enc, cross=False),
+        "enc_norm": _norm_spec(cfg, None),
+        "dec": _block(cfg, n_dec, cross=True),
+        "final_norm": _norm_spec(cfg, None),
+    }
+
+
+def _layers(stack, n: int):
+    """Each layer's views of a stacked (n, ...) tree."""
+    return [L.tree_map(lambda a: a[i], stack) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+
+def _cross_full(p, x, enc_kv, cfg):
+    """Full-sequence cross attention (no rope, no mask). enc_kv: (k, v),
+    each (B, T, Hkv, hd)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = enc_kv
+    out = L.blockwise_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _cross_kv(p, enc_out):
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    return k, v
+
+
+def encode(params, frames, cfg: ArchCfg):
+    """frames: (B, T, d_model) stub embeddings -> the encoder's output."""
+    x = frames
+    for p in _layers(params["enc"], cfg.n_enc):
+        x = L.grad_cast_bf16(x)
+        h, _ = L.gqa_full(p["attn"], _norm(cfg, x, p["mix_norm"]),
+                          rope_base=10000.0, causal=False,
+                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        x = x + h
+        x = x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
+                            act="gelu")
+    return L.rmsnorm(x, params["enc_norm"])
+
+
+def decode_train(params, enc_out, tokens, cfg: ArchCfg,
+                 last_only: bool = False):
+    """Teacher-forced decoder over tokens (B, S): float32 logits (B, S,
+    V), or (B, 1, V) with ``last_only``."""
+    x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
+    for p in _layers(params["dec"], cfg.n_dec):
+        x = L.grad_cast_bf16(x)
+        h, _ = L.gqa_full(p["attn"], _norm(cfg, x, p["mix_norm"]),
+                          rope_base=10000.0, causal=True,
+                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        x = x + h
+        x = x + _cross_full(p["cross"], _norm(cfg, x, p["cross_norm"]),
+                            _cross_kv(p["cross"], enc_out), cfg)
+        x = x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
+                            act="gelu")
+    if last_only:
+        x = x[:, -1:]
+    x = _norm(cfg, x, params["final_norm"])
+    return _logits(params, x, cfg)
+
+
+def encdec_forward(params, frames, tokens, cfg: ArchCfg):
+    return decode_train(params, encode(params, frames, cfg), tokens, cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def _cache_shapes(cfg: ArchCfg, n_dec: int, batch: int, max_len: int,
+                  enc_len: int):
+    kv = (batch, max_len, cfg.n_kv, cfg.head_dim)
+    xkv = (batch, enc_len, cfg.n_kv, cfg.head_dim)
+    return {
+        "self_k": ((n_dec,) + kv, torch.bfloat16),
+        "self_v": ((n_dec,) + kv, torch.bfloat16),
+        "cross_k": ((n_dec,) + xkv, torch.bfloat16),
+        "cross_v": ((n_dec,) + xkv, torch.bfloat16),
+    }
+
+
+def init_encdec_cache(cfg, n_dec, batch, max_len, enc_len, *, device):
+    """Zeroed bf16 buffers: the decoder's self-attention KV at
+    ``max_len`` and the cross-attention KV at ``enc_len``, stacked over
+    the ``n_dec`` layers."""
+    return {k: torch.zeros(sh, dtype=dt, device=device) for k, (sh, dt) in
+            _cache_shapes(cfg, n_dec, batch, max_len, enc_len).items()}
+
+
+def abstract_encdec_cache(cfg, n_dec, batch, max_len, enc_len):
+    """The cache's ``meta`` tensors: no allocation."""
+    return {k: torch.empty(sh, dtype=dt, device="meta") for k, (sh, dt) in
+            _cache_shapes(cfg, n_dec, batch, max_len, enc_len).items()}
+
+
+def fill_cross_cache(params, enc_out, cache, cfg: ArchCfg):
+    """Compute the static cross-attention KV of every decoder layer into
+    ``cache`` (in place, cast to its dtype); returns ``cache``."""
+    for i, p in enumerate(_layers(params["dec"], cfg.n_dec)):
+        k, v = _cross_kv(p["cross"], enc_out)
+        cache["cross_k"][i].copy_(k)
+        cache["cross_v"][i].copy_(v)
+    return cache
+
+
+def encdec_decode_step(params, cache, tokens, pos, cfg: ArchCfg):
+    """One decoder token. tokens: (B, 1); pos: an int or a one-element
+    int64 tensor. Writes the self-attention k/v into ``cache`` in place
+    and returns (logits (B, 1, V) float32, cache)."""
+    x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
+    for i, p in enumerate(_layers(params["dec"], cfg.n_dec)):
+        h, _, _ = L.gqa_decode(p["attn"], _norm(cfg, x, p["mix_norm"]),
+                               cache["self_k"][i], cache["self_v"][i], pos,
+                               rope_base=10000.0)
+        x = x + h
+        # cross attention against the static encoder KV, in float32
+        xk, xv = cache["cross_k"][i], cache["cross_v"][i]
+        xn = _norm(cfg, x, p["cross_norm"])
+        q = torch.einsum("bsd,dhk->bshk", xn, p["cross"]["wq"])
+        B, _, H, hd = q.shape
+        Hkv = xk.shape[2]
+        qg = q.reshape(B, Hkv, H // Hkv, hd)
+        s = torch.einsum("bhgk,bthk->bhgt", qg.float(), xk.float())
+        a = torch.softmax(s / math.sqrt(hd), dim=-1)
+        o = torch.einsum("bhgt,bthk->bhgk", a, xv.float()).to(x.dtype)
+        o = o.reshape(B, 1, H, hd)
+        x = x + torch.einsum("bshk,hkd->bsd", o, p["cross"]["wo"])
+        x = x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
+                            act="gelu")
+    x = _norm(cfg, x, params["final_norm"])
+    return _logits(params, x, cfg), cache

@@ -7,13 +7,14 @@ non-repeating ``tail``. The parameter tree keeps the reference's keys and
 layout, so the JAX package's params convert key for key
 (``repro_torch.convert.lm_params_from_numpy``).
 
-Ported: the dense GQA family (``mixer="attn"`` with ``ffn="mlp"`` or
-``"none"``), with post-norms, sliding windows, per-kind ``rope_base``,
-logit softcaps, padded vocabularies and the VLM prefix (qwen3, qwen2,
-minitron, gemma3, internvl2's backbone). The other mixers (``mla``,
-``mlstm``, ``slstm``, ``rglru``), ``ffn="moe"`` and ``family="encdec"``
-raise ``NotImplementedError``: ROADMAP §1 item 4 ports them in a later
-slice. One device, no mesh.
+Every family of the reference serves here: dense GQA (with post-norms,
+sliding windows, per-kind ``rope_base``, logit softcaps, padded
+vocabularies and the VLM prefix), MLA (``models/mla.py``), MoE FFNs
+(``models/moe.py``), xLSTM's mLSTM and sLSTM (``models/ssm.py``) and
+RG-LRU (``models/rglru.py``). The encoder-decoder family assembles the
+same blocks in ``models/encdec.py``; run through this module, an
+enc-dec config is its decoder stack alone, as in the reference. One
+device, no mesh (ROADMAP §1 item 4.3); training is item 4.2.
 
 The functional core (``lm_forward``, ``lm_decode_step``) takes the nested
 dict of tensors; :class:`LanguageModel` is the ``nn.Module`` that holds
@@ -22,6 +23,7 @@ that tree.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -29,10 +31,14 @@ from torch import nn
 
 from ..core.engine import resolve_device
 from . import layers as L
+from . import mla as MLA
+from . import moe as MOE
+from . import rglru as RG
+from . import ssm as SSM
 from .layers import PSpec
 
 __all__ = ["LayerKind", "MoeCfg", "MlaCfg", "ArchCfg", "LanguageModel",
-           "is_ported", "check_device", "block_spec", "lm_spec",
+           "check_device", "block_spec", "lm_spec",
            "num_params", "lm_forward", "lm_decode_step", "init_cache",
            "abstract_cache"]
 
@@ -122,38 +128,6 @@ class ArchCfg:
         return -(-self.vocab // m) * m
 
 
-# What is not ported yet, and the ROADMAP entry that ports it.
-_LATER = "ROADMAP §1 item 4, slice 1 (the other serving mixers)"
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet: "
-                               f"{_LATER}")
-
-
-def _check_kind(kind: LayerKind) -> None:
-    if kind.mixer != "attn":
-        raise _unported(f"mixer={kind.mixer!r}")
-    if kind.ffn not in ("mlp", "none"):
-        raise _unported(f"ffn={kind.ffn!r}")
-
-
-def _check_ported(cfg: ArchCfg) -> None:
-    if cfg.family == "encdec":
-        raise _unported(f"family='encdec' ({cfg.name})")
-    for kind in cfg.block_pattern + cfg.tail:
-        _check_kind(kind)
-
-
-def is_ported(cfg: ArchCfg) -> bool:
-    """Whether the port can build and run ``cfg``."""
-    try:
-        _check_ported(cfg)
-    except NotImplementedError:
-        return False
-    return True
-
-
 def check_device(what: str, have: torch.device,
                  device: torch.device) -> None:
     """Raise unless ``have`` is ``device``; ``what`` names what lies on
@@ -177,15 +151,34 @@ def _norm_spec(cfg: ArchCfg, stack):
 
 def block_spec(kind: LayerKind, cfg: ArchCfg,
                stack: Optional[int] = None) -> Dict[str, Any]:
-    _check_kind(kind)
-    s: Dict[str, Any] = {
-        "mix_norm": _norm_spec(cfg, stack),
-        "attn": L.attn_spec(cfg.d_model, cfg.n_heads, cfg.n_kv,
-                            cfg.head_dim, qkv_bias=cfg.qkv_bias,
-                            qk_norm=cfg.qk_norm, stack=stack),
-    }
-    if cfg.post_norms:
+    s: Dict[str, Any] = {}
+    if kind.mixer == "attn":
+        s["mix_norm"] = _norm_spec(cfg, stack)
+        s["attn"] = L.attn_spec(cfg.d_model, cfg.n_heads, cfg.n_kv,
+                                cfg.head_dim, qkv_bias=cfg.qkv_bias,
+                                qk_norm=cfg.qk_norm, stack=stack)
+    elif kind.mixer == "mla":
+        s["mix_norm"] = _norm_spec(cfg, stack)
+        m = cfg.mla
+        s["attn"] = MLA.mla_spec(cfg.d_model, cfg.n_heads, q_lora=m.q_lora,
+                                 kv_lora=m.kv_lora, qk_nope=m.qk_nope,
+                                 qk_rope=m.qk_rope, v_dim=m.v_dim,
+                                 stack=stack)
+    elif kind.mixer == "mlstm":
+        s["mlstm"] = SSM.mlstm_spec(cfg.d_model, cfg.xlstm_heads,
+                                    stack=stack)
+    elif kind.mixer == "slstm":
+        s["slstm"] = SSM.slstm_spec(cfg.d_model, cfg.xlstm_heads,
+                                    stack=stack)
+    elif kind.mixer == "rglru":
+        s["rglru"] = RG.rglru_spec(cfg.d_model, lru_width=cfg.lru_width,
+                                   stack=stack)
+    else:
+        raise ValueError(kind.mixer)
+
+    if cfg.post_norms and kind.mixer in ("attn", "mla"):
         s["mix_post_norm"] = _norm_spec(cfg, stack)
+
     if kind.ffn == "mlp":
         s["ffn_norm"] = _norm_spec(cfg, stack)
         s["mlp"] = L.mlp_spec(cfg.d_model, cfg.d_ff,
@@ -193,11 +186,15 @@ def block_spec(kind: LayerKind, cfg: ArchCfg,
                               stack=stack)
         if cfg.post_norms:
             s["ffn_post_norm"] = _norm_spec(cfg, stack)
+    elif kind.ffn == "moe":
+        mo = cfg.moe
+        s["ffn_norm"] = _norm_spec(cfg, stack)
+        s["moe"] = MOE.moe_spec(cfg.d_model, mo.d_ff_expert, mo.n_routed,
+                                mo.n_shared, stack=stack)
     return s
 
 
 def lm_spec(cfg: ArchCfg) -> Dict[str, Any]:
-    _check_ported(cfg)
     s: Dict[str, Any] = {
         "embed": L.embed_spec(cfg.vocab_padded, cfg.d_model),
         "final_norm": _norm_spec(cfg, None),
@@ -225,42 +222,103 @@ def _norm(cfg, x, w):
     return L.rmsnorm(x, w, plus_one=cfg.norm_plus_one)
 
 
+def _moe_capacity(cfg: ArchCfg, n_tokens: int) -> int:
+    """Slots per expert for ``n_tokens`` tokens: capacity_factor times
+    the mean load, at least 8, rounded up to a multiple of 8."""
+    mo = cfg.moe
+    c = math.ceil(n_tokens * mo.topk * mo.capacity_factor / mo.n_routed)
+    return max(8, -(-c // 8) * 8)
+
+
 def _apply_ffn(kind, p, x, cfg):
-    if kind.ffn == "none":
-        return x
-    h = L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]), act=cfg.act)
-    if cfg.post_norms:
-        h = _norm(cfg, h, p["ffn_post_norm"])
-    return x + L.grad_cast_bf16(h)
+    if kind.ffn == "mlp":
+        h = L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]), act=cfg.act)
+        if cfg.post_norms:
+            h = _norm(cfg, h, p["ffn_post_norm"])
+        return x + L.grad_cast_bf16(h)
+    if kind.ffn == "moe":
+        B, S, _ = x.shape
+        h = MOE.moe_apply(p["moe"], _norm(cfg, x, p["ffn_norm"]),
+                          topk=cfg.moe.topk, n_routed=cfg.moe.n_routed,
+                          capacity=_moe_capacity(cfg, max(1, B * S)),
+                          renormalize=cfg.moe.renormalize)
+        return x + h
+    return x
 
 
 def block_full(kind: LayerKind, p, x, cfg: ArchCfg):
-    """Prefill through one block. Returns (x, cache_entry)."""
-    _check_kind(kind)
-    h, (k, v) = L.gqa_full(
-        p["attn"], _norm(cfg, x, p["mix_norm"]), rope_base=kind.rope_base,
-        window=kind.window, qk_norm=cfg.qk_norm, logit_cap=cfg.logit_cap,
-        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
-        skip_masked_blocks=cfg.attn_block_skip)
-    if cfg.post_norms:
-        h = _norm(cfg, h, p["mix_post_norm"])
-    x = x + L.grad_cast_bf16(h)
-    return _apply_ffn(kind, p, x, cfg), {"k": k, "v": v}
+    """Prefill through one block. Returns (x, cache_entry): k/v, the MLA
+    latents, or a recurrent mixer's state after the last position."""
+    if kind.mixer == "attn":
+        h, (k, v) = L.gqa_full(
+            p["attn"], _norm(cfg, x, p["mix_norm"]),
+            rope_base=kind.rope_base, window=kind.window,
+            qk_norm=cfg.qk_norm, logit_cap=cfg.logit_cap,
+            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+            skip_masked_blocks=cfg.attn_block_skip)
+        if cfg.post_norms:
+            h = _norm(cfg, h, p["mix_post_norm"])
+        x = x + L.grad_cast_bf16(h)
+        cache = {"k": k, "v": v}
+    elif kind.mixer == "mla":
+        m = cfg.mla
+        h, (ckv, kpe) = MLA.mla_full(
+            p["attn"], _norm(cfg, x, p["mix_norm"]), qk_nope=m.qk_nope,
+            qk_rope=m.qk_rope, kv_lora=m.kv_lora, v_dim=m.v_dim,
+            rope_base=kind.rope_base, q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk)
+        x = x + L.grad_cast_bf16(h)
+        cache = {"ckv": ckv, "kpe": kpe}
+    elif kind.mixer == "mlstm":
+        h, cache = SSM.mlstm_scan(p["mlstm"], x, n_heads=cfg.xlstm_heads)
+        x = x + h
+    elif kind.mixer == "slstm":
+        h, cache = SSM.slstm_scan(p["slstm"], x, n_heads=cfg.xlstm_heads)
+        x = x + h
+    elif kind.mixer == "rglru":
+        h, cache = RG.rglru_scan(p["rglru"], x)
+        x = x + h
+    else:
+        raise ValueError(kind.mixer)
+    return _apply_ffn(kind, p, x, cfg), cache
 
 
 def block_decode(kind: LayerKind, p, x, cache, pos, cfg: ArchCfg):
-    """Single-token decode through one block; ``cache`` (this layer's
-    ``k``/``v`` buffers) is written in place at ``pos``. Returns (x,
-    cache)."""
-    _check_kind(kind)
-    h, ck, cv = L.gqa_decode(
-        p["attn"], _norm(cfg, x, p["mix_norm"]), cache["k"], cache["v"],
-        pos, rope_base=kind.rope_base, window=kind.window,
-        qk_norm=cfg.qk_norm, logit_cap=cfg.logit_cap)
-    if cfg.post_norms:
-        h = _norm(cfg, h, p["mix_post_norm"])
-    x = x + h
-    return _apply_ffn(kind, p, x, cfg), {"k": ck, "v": cv}
+    """Single-token decode through one block. Attention k/v and MLA
+    latents are written into ``cache`` in place at ``pos``; a recurrent
+    mixer returns its new state. Returns (x, the layer's new cache
+    entry)."""
+    if kind.mixer == "attn":
+        h, ck, cv = L.gqa_decode(
+            p["attn"], _norm(cfg, x, p["mix_norm"]), cache["k"],
+            cache["v"], pos, rope_base=kind.rope_base, window=kind.window,
+            qk_norm=cfg.qk_norm, logit_cap=cfg.logit_cap)
+        if cfg.post_norms:
+            h = _norm(cfg, h, p["mix_post_norm"])
+        x = x + h
+        cache = {"k": ck, "v": cv}
+    elif kind.mixer == "mla":
+        m = cfg.mla
+        h, ckv, kpe = MLA.mla_decode(
+            p["attn"], _norm(cfg, x, p["mix_norm"]), cache["ckv"],
+            cache["kpe"], pos, qk_nope=m.qk_nope, qk_rope=m.qk_rope,
+            kv_lora=m.kv_lora, v_dim=m.v_dim, rope_base=kind.rope_base)
+        x = x + L.grad_cast_bf16(h)
+        cache = {"ckv": ckv, "kpe": kpe}
+    elif kind.mixer == "mlstm":
+        h, cache = SSM.mlstm_step(p["mlstm"], x, cache,
+                                  n_heads=cfg.xlstm_heads)
+        x = x + h
+    elif kind.mixer == "slstm":
+        h, cache = SSM.slstm_step(p["slstm"], x, cache,
+                                  n_heads=cfg.xlstm_heads)
+        x = x + h
+    elif kind.mixer == "rglru":
+        h, cache = RG.rglru_step(p["rglru"], x, cache)
+        x = x + h
+    else:
+        raise ValueError(kind.mixer)
+    return _apply_ffn(kind, p, x, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -269,37 +327,65 @@ def block_decode(kind: LayerKind, p, x, cache, pos, cfg: ArchCfg):
 
 def _block_cache_shapes(kind: LayerKind, cfg: ArchCfg, batch: int,
                         max_len: int):
-    sh = (batch, max_len, cfg.n_kv, cfg.head_dim)
-    return {"k": (sh, torch.bfloat16), "v": (sh, torch.bfloat16)}
+    d = cfg.d_model
+    if kind.mixer == "attn":
+        sh = (batch, max_len, cfg.n_kv, cfg.head_dim)
+        return {"k": (sh, torch.bfloat16), "v": (sh, torch.bfloat16)}
+    if kind.mixer == "mla":
+        m = cfg.mla
+        return {"ckv": ((batch, max_len, m.kv_lora), torch.bfloat16),
+                "kpe": ((batch, max_len, m.qk_rope), torch.bfloat16)}
+    if kind.mixer == "mlstm":
+        di = int(d * 2.0)
+        dh = di // cfg.xlstm_heads
+        return {"C": ((batch, cfg.xlstm_heads, dh, dh), torch.float32),
+                "n": ((batch, cfg.xlstm_heads, dh), torch.float32),
+                "m": ((batch, cfg.xlstm_heads), torch.float32),
+                "conv": ((batch, SSM.CONV_W - 1, di), torch.bfloat16)}
+    if kind.mixer == "slstm":
+        sh = (batch, d)
+        return {"c": (sh, torch.float32), "n": (sh, torch.float32),
+                "h": (sh, torch.float32), "m": (sh, torch.float32)}
+    if kind.mixer == "rglru":
+        dr = cfg.lru_width or d
+        return {"h": ((batch, dr), torch.float32),
+                "conv": ((batch, SSM.CONV_W - 1, dr), torch.bfloat16)}
+    raise ValueError(kind.mixer)
 
 
 def _make_cache(cfg: ArchCfg, batch: int, max_len: int, fn):
-    """fn(shape_without_stack, dtype, stacked: bool) -> leaf."""
-    _check_ported(cfg)
+    """fn(name, shape, dtype) -> leaf; stage leaves get the (repeats,)
+    axis in front."""
     out = {"stage": {}}
     for i, kind in enumerate(cfg.block_pattern):
         shapes = _block_cache_shapes(kind, cfg, batch, max_len)
         out["stage"][str(i)] = {
-            k: fn(((cfg.repeats,) + sh), dt) for k, (sh, dt) in shapes.items()}
+            k: fn(k, (cfg.repeats,) + sh, dt)
+            for k, (sh, dt) in shapes.items()}
     if cfg.tail:
         out["tail"] = {}
         for i, kind in enumerate(cfg.tail):
             shapes = _block_cache_shapes(kind, cfg, batch, max_len)
             out["tail"][str(i)] = {
-                k: fn(sh, dt) for k, (sh, dt) in shapes.items()}
+                k: fn(k, sh, dt) for k, (sh, dt) in shapes.items()}
     return out
 
 
 def init_cache(cfg: ArchCfg, batch: int, max_len: int, *, device):
-    """Zeroed KV buffers: (repeats, B, max_len, Hkv, hd) bf16 per stage
-    block, (B, max_len, Hkv, hd) per tail block."""
-    return _make_cache(cfg, batch, max_len, lambda sh, dt: torch.zeros(
-        sh, dtype=dt, device=device))
+    """The serving buffers: KV and MLA latents at ``max_len`` (bf16),
+    recurrent states (float32, conv buffers bf16), every leaf zero but
+    the float32 ``m`` stabilizers of rank <= 3, which start at -inf (the
+    reference's rule)."""
+    def mk(name, sh, dt):
+        if name == "m" and dt == torch.float32 and len(sh) <= 3:
+            return torch.full(sh, -math.inf, dtype=dt, device=device)
+        return torch.zeros(sh, dtype=dt, device=device)
+    return _make_cache(cfg, batch, max_len, mk)
 
 
 def abstract_cache(cfg: ArchCfg, batch: int, max_len: int):
     """The cache's ``meta`` tensors: no allocation."""
-    return _make_cache(cfg, batch, max_len, lambda sh, dt: torch.empty(
+    return _make_cache(cfg, batch, max_len, lambda name, sh, dt: torch.empty(
         sh, dtype=dt, device="meta"))
 
 
@@ -318,8 +404,8 @@ def lm_forward(params, tokens, cfg: ArchCfg, *, prefix_embeds=None,
     stub prefix (VLM), placed before the tokens. Returns float32 logits
     (B, S_total, V), or (B, 1, V) with ``last_only``, and with
     ``return_cache`` the prefill KV caches: stacked (repeats, B, S_total,
-    Hkv, hd) per stage block, k roped, not padded to a max_len."""
-    _check_ported(cfg)
+    Hkv, hd) per stage block, k roped, not padded to a max_len, and each
+    recurrent mixer's state after the last position."""
     x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -368,22 +454,35 @@ def _logits(params, x, cfg: ArchCfg):
     return logits
 
 
+def _write_back(buffers, new) -> None:
+    """Copy a layer's new cache entry into its buffers (views of the
+    cache), leaf by leaf, where the mixer did not write in place: a
+    recurrent state replaces the old one, as the reference's stacked
+    update does."""
+    for name, t in new.items():
+        if t is not buffers[name]:
+            buffers[name].copy_(t)
+
+
 def lm_decode_step(params, cache, tokens, pos, cfg: ArchCfg):
     """tokens: (B, 1) int64; pos: the position written (an int or a 0-d or
-    one-element int tensor on the params' device). Writes every layer's
-    new k/v into ``cache`` in place (the reference donates its cache) and
-    returns (logits (B, 1, V) float32, cache)."""
-    _check_ported(cfg)
+    one-element int tensor on the params' device). Updates ``cache`` in
+    place (the reference donates its cache): every layer's new k/v or MLA
+    latents at ``pos``, every recurrent state replaced. Returns (logits
+    (B, 1, V) float32, cache)."""
     x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
     pos = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
     for r in range(cfg.repeats):
         p_r = _layer(params["stage"], r)
         c_r = _layer(cache["stage"], r)
         for j, kind in enumerate(cfg.block_pattern):
-            x, _ = block_decode(kind, p_r[str(j)], x, c_r[str(j)], pos, cfg)
+            x, new = block_decode(kind, p_r[str(j)], x, c_r[str(j)], pos,
+                                  cfg)
+            _write_back(c_r[str(j)], new)
     for i, kind in enumerate(cfg.tail):
-        x, _ = block_decode(kind, params["tail"][str(i)], x,
-                            cache["tail"][str(i)], pos, cfg)
+        x, new = block_decode(kind, params["tail"][str(i)], x,
+                              cache["tail"][str(i)], pos, cfg)
+        _write_back(cache["tail"][str(i)], new)
     x = _norm(cfg, x, params["final_norm"])
     return _logits(params, x, cfg), cache
 

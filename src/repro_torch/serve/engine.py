@@ -5,10 +5,11 @@ port of ``repro.serve.engine``).
   prefill(params, tokens, prefix=None) -> (last-position logits, cache)
   decode(params, cache, tokens, pos)   -> (logits, cache)
 and the cache's allocator. There is no jit: PyTorch runs eagerly, each
-call under ``torch.inference_mode()``. ``decode`` writes the new k/v into
-the cache in place and returns the same buffers (the reference donates
-its cache to the jitted step). KV buffers are allocated at ``max_len``
-on the serving device.
+call under ``torch.inference_mode()``. ``decode`` updates the cache in
+place and returns the same buffers (the reference donates its cache to
+the jitted step): new k/v and MLA latents at ``pos``, recurrent states
+replaced. KV and latent buffers are allocated at ``max_len`` on the
+serving device; recurrent states are O(1) in the sequence.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; it raises when there is no card, and when the params
@@ -32,10 +33,13 @@ def _tokens(tokens, device) -> torch.Tensor:
 
 
 def place_prefill_cache(cfg: LM.ArchCfg, prefill_cache, buffers, seq_len):
-    """Copy prefill-produced caches (length S along the sequence axis)
-    into the ``max_len`` buffers at offset 0, in place; returns
-    ``buffers``. ``seq_len`` is the reference's argument, unused there
-    too: the shapes say where to paste."""
+    """Copy prefill-produced caches into the ``max_len`` buffers, in
+    place; returns ``buffers``. An entry shorter than its buffer along
+    the sequence (attention k/v, MLA latents) is pasted at offset 0; a
+    recurrent state has its buffer's shape and replaces it outright (cast
+    to the buffer's dtype), as the reference's ``merge`` does.
+    ``seq_len`` is the reference's argument, unused there too: the shapes
+    say where to paste."""
     def merge(buf, new):
         if buf.shape != new.shape and buf.ndim == new.ndim:
             buf[tuple(slice(0, n) for n in new.shape)].copy_(new)
@@ -52,7 +56,6 @@ def make_serve_fns(cfg: LM.ArchCfg, *, batch: int, max_len: int,
     card unless "cpu" is asked for). ``prefix_embeds`` is the reference's
     flag and changes nothing: a prefix is passed to ``prefill_fn``."""
     device = resolve_device(device)
-    LM._check_ported(cfg)
 
     def init_cache_fn():
         return LM.init_cache(cfg, batch, max_len, device=device)

@@ -5,8 +5,9 @@ card: its answers, an offloaded engine's dispatch (still K1 on the card)
 and bucketed and continuous dispatch on one engine at the same time; the
 shard engine's five exchanges in both schedules, its lane stepper, an
 offloaded shard engine (still K2 on the card) and a shard class of the
-service; the LM serving path (reduced dense configs) on the card against
-the CPU, its prefill/decode consistency, and its device rules.
+service; the LM serving path (the reduced configs of every family, the
+MoE router's choices, the enc-dec decode) on the card against the CPU,
+its prefill/decode consistency, and its device rules.
 
 Marked ``gpu``; each test decides inside itself whether there is a card
 and skips without one. The file imports no JAX, so it runs on a machine
@@ -609,3 +610,86 @@ def test_cuda_lm_params_left_on_the_cpu_raise():
         decode(left, init_cache(), tokens[:, :1], 8)
     with pytest.raises(ValueError, match="params lie on cpu"):
         LMS.greedy_generate(cfg, left, tokens[:, :8], num_new=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype", [
+    ("deepseek-moe-16b", "bf16"), ("deepseek-v2-236b", "bf16"),
+    ("recurrentgemma-9b", "bf16"), ("xlstm-350m", "f32")])
+def test_cuda_lm_other_mixers_match_cpu(arch, dtype):
+    """Prefill and one decode step of a reduced MoE, MLA, RG-LRU or xLSTM
+    config on the card against the same weights on the CPU, and every
+    cache leaf (recurrent states included) on the card. xlstm-350m runs
+    in float32: in bf16 its 16 gated recurrent layers carry the two
+    devices' last-bit differences past the tolerance on 1-5 % of the
+    logits (chip_smoke's LM_SMALL_F32, lm_precision_probe.py)."""
+    _need_card()
+    cfg, cpu, tokens, _ = _lm(arch)
+    if dtype == "f32":
+        cpu = LML.tree_map(lambda t: t.float(), cpu)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = LML.tree_map(lambda t: t.to(dev), cpu)
+        prefill, decode, init_cache = LMS.make_serve_fns(
+            cfg, batch=2, max_len=16, device=dev)
+        logits, pcache = prefill(params, tokens[:, :12])
+        cache = LMS.place_prefill_cache(cfg, pcache, init_cache(), 12)
+        step, cache = decode(params, cache, tokens[:, 12:], 12)
+        out[dev] = (logits, step, cache)
+    logits, step, cache = out["cuda"]
+    devices = set()
+    LML.tree_map(lambda t: devices.add(t.device.type), cache)
+    assert devices == {"cuda"}
+    _lm_agree(logits, out["cpu"][0])
+    _lm_agree(step, out["cpu"][1])
+
+
+@pytest.mark.gpu
+def test_cuda_moe_choices_match_cpu():
+    """The router's (token, expert) choices and the dispatch on the card
+    against the CPU in float32: the same experts, outputs to 1e-4."""
+    _need_card()
+    from repro_torch.models import moe as MOE
+    g = torch.Generator().manual_seed(0)
+    p = LML.init_params(MOE.moe_spec(64, 32, 16, 0), generator=g)
+    p = LML.tree_map(lambda t: t.float(), p)
+    x2 = torch.randn(96, 64, generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        q = LML.tree_map(lambda t: t.to(dev), p)
+        _, idx = MOE.route(x2.to(dev), q["router"], topk=4,
+                           renormalize=True)
+        y = MOE._dispatch_compute(
+            x2.to(dev), q["router"], q["we_gate"], q["we_up"],
+            q["we_down"], topk=4, capacity=16, n_routed=16, e_start=0,
+            e_local=16, renormalize=True)
+        out[dev] = (idx.cpu(), y.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_encdec_matches_cpu():
+    """seamless-m4t-medium reduced: encode, the cross cache and three
+    teacher-forced decode steps on the card against the CPU (bf16)."""
+    _need_card()
+    from repro_torch.models import encdec as ED
+    cfg = LMC.get("seamless-m4t-medium", reduced=True)
+    g = torch.Generator().manual_seed(0)
+    cpu = LML.init_params(ED.encdec_spec(cfg, cfg.n_enc, cfg.n_dec),
+                          generator=g)
+    frames = torch.randn(2, 12, cfg.d_model, generator=g).to(torch.bfloat16)
+    tokens = torch.randint(1, cfg.vocab, (2, 3), generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = LML.tree_map(lambda t: t.to(dev), cpu)
+        enc = ED.encode(params, frames.to(dev), cfg)
+        cache = ED.init_encdec_cache(cfg, cfg.n_dec, 2, 8, 12, device=dev)
+        ED.fill_cross_cache(params, enc, cache, cfg)
+        steps = [ED.encdec_decode_step(params, cache,
+                                       tokens[:, t:t + 1].to(dev), t,
+                                       cfg)[0] for t in range(3)]
+        out[dev] = torch.cat(steps, dim=1)
+    assert out["cuda"].device.type == "cuda"
+    _lm_agree(out["cuda"], out["cpu"])

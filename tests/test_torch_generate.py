@@ -1,5 +1,5 @@
 """The port's serving path in bf16, the serving dtype, against the JAX
-package's on the reduced dense configs (JAX's params converted through
+package's on every reduced config (JAX's params converted through
 ``convert.lm_params_from_numpy``): prefill, then decode steps
 teacher-forced on JAX's greedy tokens, every step's logits within the
 reference's own tolerance (``atol = 0.75, rtol = 0.1``, top-1 >= 0.5;
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _lm_reference import (B, BF16, DENSE, MAX_LEN, STEPS, T, margin_tol,
+from _lm_reference import (ARCHS, B, BF16, MAX_LEN, STEPS, T, margin_tol,
                            port, reference, start)
 from repro import configs as JC
 from repro.serve import engine as JS
@@ -25,7 +25,7 @@ from repro_torch.serve import engine as TS
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_teacher_forced_decode_bf16(arch, record_property):
     ref = reference(arch, "bf16")
     cfg, params, prefix = port(arch, ref)
@@ -52,7 +52,7 @@ def test_teacher_forced_decode_bf16(arch, record_property):
                                       greedy[:, i][sure])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_generate_bf16(arch):
     """Free-running greedy tokens equal JAX's up to the first step where a
     row's JAX margin is within the tolerance (after it, both are right)."""

@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, nothing of the JAX package, and no quiet
 fallback to the CPU.
 
-Every ``.py`` under ``src/repro_torch/`` and ``chip_smoke.py`` is parsed
-with ``ast``; an import of ``jax``, ``jaxlib`` or ``repro`` (or any of
-their submodules) fails the test. ``repro_torch`` itself is allowed.
+Every ``.py`` under ``src/repro_torch/``, ``chip_smoke.py`` and
+``lm_precision_probe.py`` is parsed with ``ast``; an import of ``jax``,
+``jaxlib`` or ``repro`` (or any of their submodules) fails the test.
+``repro_torch`` itself is allowed.
 """
 import ast
 from pathlib import Path
@@ -34,7 +35,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "lm_precision_probe.py"]
     return files
 
 

@@ -2,12 +2,16 @@
 ``repro_torch.configs``) against the JAX package's.
 
 Configs equal field for field; specs leaf for leaf (keys, shapes, axes,
-init); ``num_params`` on the full configs (a spec walk, no allocation).
-``lm_forward`` runs the reduced dense configs on JAX's params, converted
-through ``convert.lm_params_from_numpy``: cast to float32 on both sides
-they agree to ``rtol = atol = 1e-4``; in bf16, the serving dtype, to the
-reference's own prefill/decode tolerance (``atol = 0.75, rtol = 0.1``,
-top-1 agreement >= 0.5; tests/test_models.py).
+init); ``num_params`` on the full configs (a spec walk, no allocation);
+the serving caches leaf for leaf (shapes, dtypes, the -inf stabilizers).
+``lm_forward`` runs every reduced config (an enc-dec config as its
+decoder stack, as the reference's ``lm_forward`` does) on JAX's params,
+converted through ``convert.lm_params_from_numpy``: cast to float32 on
+both sides they agree to ``rtol = atol = 1e-4`` (atol 5e-4 for
+xlstm-350m, whose bf16 reference runs eagerly: tests/_lm_reference.py);
+in bf16, the serving dtype, to the reference's own prefill/decode
+tolerance (``atol = 0.75, rtol = 0.1``, top-1 agreement >= 0.5;
+tests/test_models.py).
 """
 import dataclasses
 
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _lm_reference import f32_tol, jax_mode
 from repro import configs as JC
 from repro.models import layers as JL
 from repro.models import lm as JLM
@@ -27,9 +32,7 @@ from repro_torch.models import lm as TLM
 
 torch.set_num_threads(1)
 
-DENSE = list(TC.DENSE_IDS)
-UNPORTED = [a for a in TC.ARCH_IDS if a not in TC.DENSE_IDS]
-F32 = dict(rtol=1e-4, atol=1e-4)
+ARCHS = list(TC.ARCH_IDS)
 BF16 = dict(rtol=0.1, atol=0.75)
 
 
@@ -102,34 +105,45 @@ def test_input_specs(arch):
                 name, k)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_mixers_raise(arch):
-    cfg = TC.get(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM.lm_spec(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM.lm_forward({}, torch.zeros(1, 4, dtype=torch.long), cfg)
+def test_family_id_lists():
+    assert TC.DENSE_IDS == ("qwen3-4b", "qwen2-72b", "gemma3-27b",
+                            "minitron-4b", "internvl2-76b")
+    assert TC.MOE_IDS == ("deepseek-moe-16b", "deepseek-v2-236b")
+    assert TC.MLA_IDS == ("deepseek-v2-236b",)
+    assert TC.RECURRENT_IDS == ("xlstm-350m", "recurrentgemma-9b")
+    assert TC.ENCDEC_IDS == ("seamless-m4t-medium",)
+    assert set(TC.DENSE_IDS + TC.MOE_IDS + TC.RECURRENT_IDS
+               + TC.ENCDEC_IDS) == set(TC.ARCH_IDS)
 
 
-def test_unported_kinds_raise_on_a_dense_config():
-    cfg = TC.get("qwen3-4b", reduced=True)
-    for kind in (TLM.LayerKind(mixer="mla"), TLM.LayerKind(ffn="moe")):
-        bad = dataclasses.replace(cfg, block_pattern=(kind,))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TLM.lm_spec(bad)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_cache_equals_the_reference(arch):
+    """Leaf for leaf: shapes, dtypes and values (zeros, and -inf for the
+    float32 m stabilizers)."""
+    t = TLM.init_cache(TC.get(arch, reduced=True), 2, 16, device="cpu")
+    j = JLM.init_cache(JC.get(arch, reduced=True), 2, 16)
+    got = list(_spec_leaves(t))
+    want = list(_spec_leaves(j))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert tuple(g.shape) == w.shape, path
+        assert _dtype_name(g.dtype) == _dtype_name(w.dtype), path
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w, np.float32))
+    meta = TLM.abstract_cache(TC.get(arch, reduced=True), 2, 16)
+    assert [tuple(m.shape) for _, m in _spec_leaves(meta)] == [
+        w.shape for _, w in want]
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_lm_spec_equals_the_reference(arch, reduced):
     t = TLM.lm_spec(TC.get(arch, reduced=reduced))
     j = JLM.lm_spec(JC.get(arch, reduced=reduced))
     assert _spec_rows(t) == _spec_rows(j)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_num_params_full(arch):
     assert (TLM.num_params(TC.get(arch))
             == JLM.num_params(JC.get(arch)))
@@ -149,7 +163,7 @@ def test_qwen3_4b_size_on_meta():
     assert k.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_lm_forward_f32(arch, record_property):
     jcfg, tcfg = JC.get(arch, reduced=True), TC.get(arch, reduced=True)
     pj = _jax_params(jcfg, jnp.float32)
@@ -165,10 +179,11 @@ def test_lm_forward_f32(arch, record_property):
     assert tuple(got.shape) == tuple(want.shape)
     record_property("max_abs_diff",
                     float(np.abs(got.numpy() - np.asarray(want)).max()))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **f32_tol(arch))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_lm_forward_bf16(arch, record_property):
     jcfg, tcfg = JC.get(arch, reduced=True), TC.get(arch, reduced=True)
     pj = _jax_params(jcfg)
@@ -176,9 +191,10 @@ def test_lm_forward_bf16(arch, record_property):
                               device="cpu")
     assert pt["embed"].dtype == torch.bfloat16
     tokens, prefix = _inputs(jcfg)
-    want = np.asarray(JLM.lm_forward(
-        pj, tokens, jcfg, prefix_embeds=None if prefix is None
-        else jnp.asarray(prefix, jnp.bfloat16)), np.float32)
+    with jax_mode(arch, "bf16"):
+        want = np.asarray(JLM.lm_forward(
+            pj, tokens, jcfg, prefix_embeds=None if prefix is None
+            else jnp.asarray(prefix, jnp.bfloat16)), np.float32)
     got = TLM.lm_forward(pt, torch.from_numpy(tokens).long(), tcfg,
                          prefix_embeds=None if prefix is None
                          else torch.from_numpy(prefix).to(torch.bfloat16))

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --seed 3   # the service phases' roots and the
                                      # LM's weights and prompts (default 0)
     python3 chip_smoke.py --lm       # device, platform and lm_serve only
+    python3 chip_smoke.py --train    # device, platform and train only
 
 Phases, in order; any failure exits non-zero:
   1. device : the card's name, the device count, nvidia-smi's name and
@@ -164,6 +165,27 @@ Phases, in order; any failure exits non-zero:
               cross cache filled, 64 greedy steps from a start token; its
               check is teacher-forced decode against encdec_forward in
               float32); each model freed before the next.
+     train  : the LM substrate's training path (repro_torch.train over
+              repro_torch.models, no hand-written kernel). (a) Every
+              config, reduced, one float32 train step on the card and on
+              the CPU from the same params (--seed) and SyntheticTokens
+              batch, grad_cast_bf16 as the identity on both: loss, grad
+              norm and every gradient at the CPU tests' tolerance. (b)
+              qwen3-4b at full width and depth (36 layers, 4,022,468,096
+              bf16 params from --seed, remat on), batch 8 x 512
+              SyntheticTokens, AdamW: a warm-up step, then TRAIN_STEPS
+              timed steps (host wall ending in synchronize), each step's
+              loss and grad norm finite, the last loss at most
+              TRAIN_LOSS_RATIO of the first, the params moved; median step
+              time, tokens/s, the share of the FLOP bound (4 x a
+              full-logits prefill at 989 TFLOP/s), peak memory; one step
+              under torch.profiler; then microbatch=2 against the unsplit
+              step from the same state (loss, grad norm). (c) At 2 of the
+              36 layers (the disk's free space read first): the state
+              after one step saved under build/ and restored onto the
+              card bit for bit; a Trainer killed at step 2 resumes from
+              its step-0 checkpoint and reaches the end. Each part's wall
+              is logged.
 Then one JSON line with both kernels' numbers (each with its launches
 on every path, "paths"), the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}.
@@ -257,6 +279,35 @@ LM_PROFILE_PROMPT = {"xlstm-350m": 64}
 # the share of decode's first-layer cache entries more than one bf16 ulp
 # from the forward's (the same bf16 inputs on both paths)
 LM_CACHE_OUTSIDE = 0.01
+# the train phase: qwen3-4b at full width and depth (remat on, as the full
+# configs set it), bf16 params from --seed, AdamW from zero moments on
+# SyntheticTokens batches; one warm-up step, then TRAIN_STEPS timed ones
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+# lr 5e-5 from step 1 (step 0 warms up at lr 0): with a peak of 1e-3 or
+# 3e-4 the loss halved after the first update, then rose again (PERF.md,
+# the training cell)
+TRAIN_OPT = dict(lr_peak=5e-5, warmup_steps=1, total_steps=1000)
+# the last timed step's loss over the first's: at most 1.5x the ratio
+# read on the card (PERF.md: 0.534, 419.2 -> 224.0)
+TRAIN_LOSS_RATIO = 0.8
+TRAIN_SMALL = (4, 16)       # the reduced configs' batch and sequence
+# the reduced configs' float32 step, card against CPU, at the CPU tests'
+# tolerance (tests/_train_reference.py): rtol = atol = 1e-4, xlstm-350m's
+# atol 1.5e-3 (its recurrence amplifies float32 rounding: 7.9e-4 card
+# against CPU, 8.4e-4 against the JAX package); both sides with
+# grad_cast_bf16 as the identity (its bf16 rounding turns last-bit
+# differences into bf16-ulp ones: ROADMAP §3)
+TRAIN_F32 = dict(rtol=1e-4, atol=1e-4)
+TRAIN_F32_LOOSE = {"xlstm-350m": dict(rtol=1e-4, atol=1.5e-3)}
+# microbatch=2 against the unsplit step from the same state: the loss
+# within the reference's bf16 tolerance (tests/test_train.py:97-103), the
+# grad norm within 1 % (the split accumulates in float32, the unsplit
+# step's gradients are bf16)
+TRAIN_MB, TRAIN_MB_LOSS_ATOL, TRAIN_MB_GNORM_RTOL = 2, 0.05, 0.01
+# the checkpoint round trip on the card: the first TRAIN_CKPT_REPEATS of
+# the 36 layers at full width (the whole state is 48 GB)
+TRAIN_CKPT_REPEATS = 2
 KERNEL = {
     "name": "segment_combine",
     "route": "cuda",
@@ -1964,13 +2015,15 @@ def cache_written(cache, want, start: int) -> None:
                                  "forward's")
 
 
-def lm_flops_prefill(cfg, params, batch: int, seq: int) -> int:
+def lm_flops_prefill(cfg, params, batch: int, seq: int,
+                     every_position: bool = False) -> int:
     """The multiply-adds (x2) a last-only prefill of a global-attention
     model needs: every matmul weight (``w*``) of the blocks once per
     token, causal attention (QK^T and PV over the s + 1 visible positions
-    of each query), one logits row per sequence. The code also computes
-    the masked blocks and the kv padding of its blockwise attention;
-    those are not counted."""
+    of each query), one logits row per sequence (every position's with
+    ``every_position``, as training computes them). The code also
+    computes the masked blocks and the kv padding of its blockwise
+    attention; those are not counted."""
     def weights(tree):
         return sum(weights(v) if isinstance(v, dict) else
                    (v.numel() if k.startswith("w") else 0)
@@ -1978,8 +2031,9 @@ def lm_flops_prefill(cfg, params, batch: int, seq: int) -> int:
     matmul = weights(params["stage"]) + weights(params.get("tail", {}))
     visible = seq * (seq + 1) // 2
     attn = 4 * batch * cfg.n_heads * cfg.head_dim * visible * cfg.n_layers
+    rows = batch * (seq if every_position else 1)
     return (2 * matmul * batch * seq + attn
-            + 2 * batch * cfg.d_model * cfg.vocab_padded)
+            + 2 * rows * cfg.d_model * cfg.vocab_padded)
 
 
 def phase_lm_full(torch, seed: int, rate: float) -> None:
@@ -2477,6 +2531,319 @@ def phase_lm_serve(torch, seed: int, rate: float) -> None:
         log("lm_serve", part=name, wall_s=round(time.perf_counter() - t0, 3))
 
 
+@contextlib.contextmanager
+def exact_float32(L, MOE):
+    """``grad_cast_bf16`` as the identity inside the block (the layers
+    module and the MoE module, which imports it by name): a float32 step
+    then rounds no cotangent to bf16, as the CPU parity tests run it."""
+    saved = L.grad_cast_bf16, MOE.grad_cast_bf16
+    L.grad_cast_bf16 = MOE.grad_cast_bf16 = lambda x: x
+    try:
+        yield
+    finally:
+        L.grad_cast_bf16, MOE.grad_cast_bf16 = saved
+
+
+def train_batch(cfg, batch: int, seq: int, seed: int, step: int = 0):
+    """SyntheticTokens' batch ``step`` for ``cfg`` (the data of --seed) and
+    the family's stub embeddings, float32, drawn from --seed."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    b = SyntheticTokens(DataConfig(vocab=cfg.vocab, global_batch=batch,
+                                   seq_len=seq, seed=seed)).batch(step)
+    rng = np.random.default_rng([seed, step])
+    if cfg.family == "vlm":
+        b["patch_embeds"] = rng.standard_normal(
+            (batch, cfg.prefix_len, cfg.d_model), dtype=np.float32)
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal((batch, seq, cfg.d_model),
+                                          dtype=np.float32)
+    return b
+
+
+def phase_train_reduced(torch, seed: int) -> None:
+    """(a) One float32 train step of every reduced config on the card
+    against the port's CPU step from the same params and batch: the loss,
+    the grad norm and every gradient at the CPU tests' tolerance."""
+    from repro_torch import configs
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MOE
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import clip_by_global_norm
+    B, S = TRAIN_SMALL
+    with exact_float32(L, MOE):
+        for arch in configs.ARCH_IDS:
+            cfg = configs.get(arch, reduced=True)
+            spec = (ED.encdec_spec(cfg, cfg.n_enc, cfg.n_dec)
+                    if cfg.family == "encdec" else LM.lm_spec(cfg))
+            cpu = L.tree_map(lambda t: t.float(), L.init_params(
+                spec, generator=torch.Generator().manual_seed(seed)))
+            batch = train_batch(cfg, B, S, seed)
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                params = L.tree_map(lambda t: t.to(dev), cpu)
+                loss, grads = TL.value_and_grad(
+                    TL.make_loss(cfg), params, TL.batch_on(batch, dev))
+                _, gnorm = clip_by_global_norm(
+                    L.tree_map(lambda g: g.clone(), grads), 1.0)
+                runs[dev] = (loss, gnorm, grads)
+            tol = TRAIN_F32_LOOSE.get(arch, TRAIN_F32)
+            (loss, gnorm, grads), (l0, n0, g0) = runs["cuda"], runs["cpu"]
+            on = {loss.device.type, gnorm.device.type}
+            worst = 0.0
+            for got, want in zip(L.leaves(grads), L.leaves(g0)):
+                on.add(got.device.type)
+                got, want = got.cpu().numpy(), want.numpy()
+                worst = max(worst, float(np.abs(got - want).max()))
+                np.testing.assert_allclose(got, want, **tol,
+                                           err_msg=f"{arch} gradient")
+            if on != {"cuda"}:
+                raise AssertionError(f"{arch}: tensors on {on}")
+            for name, a, b in (("loss", loss, l0), ("grad_norm", gnorm, n0)):
+                np.testing.assert_allclose(float(a), float(b), **tol,
+                                           err_msg=f"{arch} {name}")
+            log("train", arch=arch, check="reduced_f32_card_vs_cpu",
+                loss=float(loss), loss_cpu=float(l0),
+                grad_norm=float(gnorm), grad_norm_cpu=float(n0),
+                grad_max_abs_diff=worst, leaves=len(L.leaves(grads)), **tol)
+
+
+def lm_flops_train(cfg, params, batch: int, seq: int) -> tuple:
+    """A remat training step's multiply-adds (x2), from a prefill with
+    every position's logits: (the model's, 3 x: the forward and the
+    backward at twice the forward; the hardware's, 4 x: those and the
+    forward that remat recomputes)."""
+    fwd = lm_flops_prefill(cfg, params, batch, seq, every_position=True)
+    return 3 * fwd, 4 * fwd
+
+
+def phase_train_full(torch, seed: int) -> None:
+    """(b) qwen3-4b at full width and depth: TRAIN_STEPS timed AdamW steps
+    after a warm-up, one of them profiled, and microbatch=2 against the
+    unsplit step."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             clip_by_global_norm)
+    cfg = configs.get(TRAIN_ARCH)
+    if not cfg.remat:
+        raise AssertionError("the full config trains with remat")
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = L.init_params(LM.lm_spec(cfg), generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    state = adamw_init(params)
+    torch.cuda.synchronize()
+    n_params, param_bytes = tree_bytes(L, params)
+    _, moment_bytes = tree_bytes(L, {"m": state.m, "v": state.v})
+    oc = AdamWConfig(**TRAIN_OPT)
+    step_fn = TL.make_train_step(cfg, oc)
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, global_batch=B,
+                                      seq_len=S, seed=seed))
+    # matrix entries (|w| ~ 0.01-0.02, a bf16 ulp ~1e-4) move by ~lr a
+    # step; a norm's 1.0 (ulp 2^-7) does not move at this lr
+    def watched(p):
+        return (p["stage"]["0"]["mlp"]["w_down"][0, :8],
+                p["stage"]["0"]["attn"]["wq"][0, :8])
+    watch = [t.clone() for t in watched(params)]
+    log("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        params=n_params, param_bytes=param_bytes, moment_bytes=moment_bytes,
+        dtype=str(params["embed"].dtype), remat=cfg.remat,
+        init_s=round(time.perf_counter() - t0, 3), batch=B, seq=S,
+        tokens_per_step=B * S, opt=json.dumps(TRAIN_OPT))
+
+    t0 = time.perf_counter()
+    params, state, m = step_fn(params, state, data.batch(0), 0)
+    torch.cuda.synchronize()
+    log("train", arch=cfg.name, warmup_step_s=round(time.perf_counter() - t0,
+                                                     6),
+        loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, norms = [], [float(m["loss"])], [float(m["grad_norm"])]
+    for step in range(1, TRAIN_STEPS + 1):
+        batch = data.batch(step)
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, step)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        log("train", arch=cfg.name, step=step, step_s=round(walls[-1], 6),
+            loss=losses[-1], grad_norm=norms[-1])
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"loss or grad norm not finite: {losses} "
+                             f"{norms}")
+    if not losses[-1] <= TRAIN_LOSS_RATIO * losses[0]:
+        raise AssertionError(f"the loss did not fall to {TRAIN_LOSS_RATIO}"
+                             f" of the first: {losses}")
+    for now, was in zip(watched(params), watch):
+        if torch.equal(now, was):
+            raise AssertionError("the params did not move")
+    med = float(np.median(walls))
+    model_flops, hw_flops = lm_flops_train(cfg, params, B, S)
+    model_s, hw_s = (model_flops / BF16_FLOPS_PER_S,
+                     hw_flops / BF16_FLOPS_PER_S)
+    log("train", arch=cfg.name, steps=TRAIN_STEPS, step_s_median=med,
+        step_s_min=min(walls), step_s_max=max(walls),
+        tokens_per_s=B * S / med, model_step_flops=model_flops,
+        model_flop_bound_s=model_s, model_flop_share=model_s / med,
+        remat_step_flops=hw_flops, remat_flop_bound_s=hw_s,
+        remat_flop_share=hw_s / med,
+        flop_rate="989e12 bf16 dense (H100 SXM data sheet)",
+        loss_first=losses[0], loss_last=losses[-1],
+        loss_ratio=losses[-1] / losses[0])
+    log("train", arch=cfg.name, memory_allocated_before=before,
+        max_memory_allocated=peak, training_peak_bytes=peak - before,
+        state_bytes=param_bytes + moment_bytes,
+        total_memory=torch.cuda.get_device_properties(0).total_memory)
+
+    # (b') one step under the profiler
+    step = TRAIN_STEPS + 1
+    batch = data.batch(step)
+    (params, state, m), busy = profiled(
+        torch, lambda: step_fn(params, state, batch, step), host_ops=10,
+        train=cfg.name, step="train")
+    log("train", arch=cfg.name, profiled_step_busy_s=busy,
+        loss=float(m["loss"]))
+
+    # (b'') microbatch=2 against the unsplit step, from the same state
+    step += 1
+    batch = data.batch(step)
+    loss, grads = TL.value_and_grad(TL.make_loss(cfg), params,
+                                    TL.batch_on(batch, "cuda"))
+    _, gnorm = clip_by_global_norm(grads, oc.clip_norm)
+    loss, gnorm = float(loss), float(gnorm)
+    del grads
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, m = TL.make_train_step(cfg, oc, microbatch=TRAIN_MB)(
+        params, state, batch, step)
+    torch.cuda.synchronize()
+    mb_s = time.perf_counter() - t0
+    mb_loss, mb_norm = float(m["loss"]), float(m["grad_norm"])
+    log("train", arch=cfg.name, check="microbatch", microbatch=TRAIN_MB,
+        step_s=round(mb_s, 6), loss=mb_loss, loss_unsplit=loss,
+        grad_norm=mb_norm, grad_norm_unsplit=gnorm,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    if abs(mb_loss - loss) > TRAIN_MB_LOSS_ATOL:
+        raise AssertionError(f"microbatch loss {mb_loss} against {loss}")
+    if abs(mb_norm - gnorm) > TRAIN_MB_GNORM_RTOL * gnorm:
+        raise AssertionError(f"microbatch grad norm {mb_norm} against "
+                             f"{gnorm}")
+    del params, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _bits(torch, t):
+    """A tensor's raw bits, as an integer tensor of its width."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def phase_train_checkpoint(torch, seed: int) -> None:
+    """(c) The checkpoint round trip on the card at a depth cut: save the
+    state after one step, restore it onto the card and compare bit for
+    bit; then a Trainer killed at step 2 resumes from its step-0
+    checkpoint and reaches the end. Written under the git-ignored
+    build/."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              repeats=TRAIN_CKPT_REPEATS)
+    oc = AdamWConfig(**TRAIN_OPT)
+    params = L.init_params(LM.lm_spec(cfg), generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    state = adamw_init(params)
+    params, state, _ = TL.make_train_step(cfg, oc)(
+        params, state, train_batch(cfg, 2, 128, seed), 0)
+    tree = {"params": params, "opt": state}
+    _, nbytes = tree_bytes(L, {"params": params, "m": state.m, "v": state.v})
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    log("train", check="checkpoint", layers=cfg.n_layers, state_bytes=nbytes,
+        disk_free_bytes=free, path=str(root.relative_to(ROOT)))
+    if free < 4 * nbytes:
+        raise AssertionError(f"{free} B free, the checkpoints need "
+                             f"{4 * nbytes}")
+    t0 = time.perf_counter()
+    CKPT.save(str(root / "explicit"), 1, tree, extra={"arch": cfg.name})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, meta = CKPT.restore_latest(str(root / "explicit"), tree,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(L.leaves(got["params"]) + L.leaves(got["opt"].m)
+                     + L.leaves(got["opt"].v) + [got["opt"].count],
+                     L.leaves(params) + L.leaves(state.m)
+                     + L.leaves(state.v) + [state.count]))
+    for a, b in pairs:
+        if (a.device.type != "cuda" or a.dtype != b.dtype
+                or not torch.equal(_bits(torch, a), _bits(torch, b))):
+            raise AssertionError("a restored leaf differs from the saved")
+    log("train", check="checkpoint_round_trip", leaves=len(pairs),
+        step=meta["step"], save_s=round(save_s, 3),
+        restore_s=round(restore_s, 3), bit_equal=True)
+    del got, tree, params, state, pairs
+    shutil.rmtree(root / "explicit")
+
+    tc = TL.TrainConfig(steps=3, ckpt_every=2, ckpt_dir=str(root / "trainer"),
+                        log_every=1, seed=seed)
+    args = (cfg, DataConfig(vocab=cfg.vocab, global_batch=2, seq_len=128,
+                            seed=seed), oc, tc)
+    try:
+        TL.Trainer(*args, device="cuda").run(fail_at_step=2)
+    except RuntimeError as e:          # the injected crash, nothing else
+        if "injected failure at step 2" not in str(e):
+            raise
+    else:
+        raise AssertionError("the injected failure did not happen")
+    out = TL.Trainer(*args, device="cuda").run()
+    steps = [s for s, _ in out["losses"]]
+    kept = sorted(d.name for d in (root / "trainer").iterdir()
+                  if d.name.startswith("step_"))
+    log("train", check="kill_and_resume", resumed_steps=steps,
+        losses=[round(l, 6) for _, l in out["losses"]], kept=kept,
+        final_step=out["final_step"])
+    if (steps != [1, 2] or out["final_step"] != 2
+            or not np.isfinite([l for _, l in out["losses"]]).all()
+            or kept != ["step_00000000", "step_00000002"]):
+        raise AssertionError("the resumed trainer did not run steps 1-2 "
+                             "from the step-0 checkpoint")
+    del out
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, seed: int) -> None:
+    """The train phase: (a) every reduced config's float32 step, card
+    against CPU; (b) qwen3-4b at full width and depth; (c) checkpoints on
+    the card. Each part's wall is logged."""
+    for name, run in (("reduced", phase_train_reduced),
+                      (TRAIN_ARCH, phase_train_full),
+                      ("checkpoint", phase_train_checkpoint)):
+        t0 = time.perf_counter()
+        run(torch, seed)
+        log("train", part=name, wall_s=round(time.perf_counter() - t0, 3))
+
+
 def profiled(torch, fn, host_ops: int = 0, **label):
     """Run ``fn`` once under torch.profiler and log its wall time, the
     device's busy time and idle share over that wall, its launches and
@@ -2586,12 +2953,16 @@ def main() -> int:
     if "--lm" in args:
         phase_lm_serve(torch, seed, rate)
         return 0
+    if "--train" in args:
+        phase_train(torch, seed)
+        return 0
     phase_build()
     full = "--kernels" not in args
     records = drive(torch, torch.device("cuda"), rate, full, seed)
     if full:
         phase_dryrun(torch)
         phase_lm_serve(torch, seed, rate)
+        phase_train(torch, seed)
     print(json.dumps({"kernels": records}), flush=True)
     if not full:
         return 0

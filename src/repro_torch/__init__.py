@@ -14,10 +14,13 @@ Layout:
   service/   the query service (``GraphQueryService``: bucketed,
              continuous and preemptible scheduling, plan cache, result
              cache, tracing, metrics)
-  models/    the LM substrate's layers and decoder-only LM (dense GQA
-             family; ``LanguageModel``), with ``configs/`` (the ten
-             assigned architectures) and ``serve/`` (prefill, in-place
-             decode and greedy generation over static KV buffers)
+  models/    the LM substrate's layers, every mixer, the decoder-only
+             LM (``LanguageModel``) and the encoder-decoder, with
+             ``configs/`` (the ten assigned architectures), ``serve/``
+             (prefill, in-place decode and greedy generation over static
+             KV buffers), ``train/`` (AdamW, the train step with remat
+             and microbatching, checkpoints, int8 compression, the
+             ``Trainer``) and ``data/`` (deterministic synthetic tokens)
 
 Entry points run on the card unless ``device="cpu"`` is given, where the
 kernels' plain versions run in their place. The package imports neither

@@ -17,6 +17,9 @@ JAX package's params through ``jax.tree.map(np.asarray, params)``) into
 the port's tree of tensors, key for key and shape for shape: the
 decoder-only tree of ``models.lm.lm_spec`` or, for an encoder-decoder
 config, the ``enc``/``dec``/``cross`` tree of ``models.encdec``.
+``adamw_state_from_numpy`` does the same for the reference's optimizer
+state (its ``AdamWState``: float32 ``m`` and ``v`` trees and a
+``count``), so both packages can step from one state.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
-__all__ = ["lm_params_from_numpy", "partitioned_graph_from_numpy",
-           "state_to_numpy"]
+__all__ = ["adamw_state_from_numpy", "lm_params_from_numpy",
+           "partitioned_graph_from_numpy", "state_to_numpy"]
 
 
 def partitioned_graph_from_numpy(
@@ -103,3 +106,23 @@ def lm_params_from_numpy(cfg, tree, device=None):
     else:
         spec = LM.lm_spec(cfg)
     return walk(spec, tree, "")
+
+
+def adamw_state_from_numpy(cfg, state, device=None):
+    """The port's ``AdamWState`` for ``cfg`` from the reference's (any
+    object with ``m`` and ``v``, nested dicts of float32 numpy arrays in
+    the params' layout, and ``count``): each moment tree checked key for
+    key and shape for shape as ``lm_params_from_numpy`` checks params, the
+    count a 0-d int32 tensor. Lands on ``device``: the card unless "cpu"
+    is asked for."""
+    from .core.engine import resolve_device
+    from .models.layers import leaves
+    from .train.optimizer import AdamWState
+    device = resolve_device(device)
+    m = lm_params_from_numpy(cfg, state.m, device)
+    v = lm_params_from_numpy(cfg, state.v, device)
+    if any(t.dtype != torch.float32 for t in leaves(m) + leaves(v)):
+        raise ValueError("AdamW moments are float32")
+    count = torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,
+                         device=device)
+    return AdamWState(m=m, v=v, count=count)

@@ -9,7 +9,10 @@ Serving has no decoder prefill: the cross-attention KV of every decoder
 layer is computed once from the encoder output (``fill_cross_cache``),
 then ``encdec_decode_step`` decodes one token at a time from position 0,
 its self-attention KV growing in the cache and its cross-attention
-scored in float32 against the static encoder KV.
+scored in float32 against the static encoder KV. Training
+differentiates ``encdec_forward``; with ``cfg.remat`` each encoder and
+decoder layer recomputes its activations in the backward, as the
+reference's ``jax.checkpoint`` over its scan bodies does.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 
 from . import layers as L
 from .layers import PSpec
-from .lm import ArchCfg, _logits, _norm
+from .lm import ArchCfg, _logits, _norm, remat, unstack
 
 __all__ = ["encdec_spec", "encode", "decode_train", "encdec_forward",
            "encdec_decode_step", "init_encdec_cache", "abstract_encdec_cache",
@@ -58,11 +61,6 @@ def encdec_spec(cfg: ArchCfg, n_enc: int, n_dec: int) -> Dict[str, Any]:
     }
 
 
-def _layers(stack, n: int):
-    """Each layer's views of a stacked (n, ...) tree."""
-    return [L.tree_map(lambda a: a[i], stack) for i in range(n)]
-
-
 # ---------------------------------------------------------------------------
 
 def _cross_full(p, x, enc_kv, cfg):
@@ -84,15 +82,31 @@ def _cross_kv(p, enc_out):
 def encode(params, frames, cfg: ArchCfg):
     """frames: (B, T, d_model) stub embeddings -> the encoder's output."""
     x = frames
-    for p in _layers(params["enc"], cfg.n_enc):
-        x = L.grad_cast_bf16(x)
-        h, _ = L.gqa_full(p["attn"], _norm(cfg, x, p["mix_norm"]),
-                          rope_base=10000.0, causal=False,
-                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-        x = x + h
-        x = x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
-                            act="gelu")
+    for p in unstack(params["enc"], cfg.n_enc):
+        x = remat(cfg, _enc_layer, x, p, cfg)
     return L.rmsnorm(x, params["enc_norm"])
+
+
+def _enc_layer(x, p, cfg: ArchCfg):
+    x = L.grad_cast_bf16(x)
+    h, _ = L.gqa_full(p["attn"], _norm(cfg, x, p["mix_norm"]),
+                      rope_base=10000.0, causal=False,
+                      q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    x = x + h
+    return x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
+                           act="gelu")
+
+
+def _dec_layer(x, p, enc_out, cfg: ArchCfg):
+    x = L.grad_cast_bf16(x)
+    h, _ = L.gqa_full(p["attn"], _norm(cfg, x, p["mix_norm"]),
+                      rope_base=10000.0, causal=True,
+                      q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    x = x + h
+    x = x + _cross_full(p["cross"], _norm(cfg, x, p["cross_norm"]),
+                        _cross_kv(p["cross"], enc_out), cfg)
+    return x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
+                           act="gelu")
 
 
 def decode_train(params, enc_out, tokens, cfg: ArchCfg,
@@ -100,16 +114,8 @@ def decode_train(params, enc_out, tokens, cfg: ArchCfg,
     """Teacher-forced decoder over tokens (B, S): float32 logits (B, S,
     V), or (B, 1, V) with ``last_only``."""
     x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
-    for p in _layers(params["dec"], cfg.n_dec):
-        x = L.grad_cast_bf16(x)
-        h, _ = L.gqa_full(p["attn"], _norm(cfg, x, p["mix_norm"]),
-                          rope_base=10000.0, causal=True,
-                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-        x = x + h
-        x = x + _cross_full(p["cross"], _norm(cfg, x, p["cross_norm"]),
-                            _cross_kv(p["cross"], enc_out), cfg)
-        x = x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
-                            act="gelu")
+    for p in unstack(params["dec"], cfg.n_dec):
+        x = remat(cfg, _dec_layer, x, p, enc_out, cfg)
     if last_only:
         x = x[:, -1:]
     x = _norm(cfg, x, params["final_norm"])
@@ -153,7 +159,7 @@ def abstract_encdec_cache(cfg, n_dec, batch, max_len, enc_len):
 def fill_cross_cache(params, enc_out, cache, cfg: ArchCfg):
     """Compute the static cross-attention KV of every decoder layer into
     ``cache`` (in place, cast to its dtype); returns ``cache``."""
-    for i, p in enumerate(_layers(params["dec"], cfg.n_dec)):
+    for i, p in enumerate(unstack(params["dec"], cfg.n_dec)):
         k, v = _cross_kv(p["cross"], enc_out)
         cache["cross_k"][i].copy_(k)
         cache["cross_v"][i].copy_(v)
@@ -166,7 +172,7 @@ def encdec_decode_step(params, cache, tokens, pos, cfg: ArchCfg):
     and returns (logits (B, 1, V) float32, cache)."""
     x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
     pos = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
-    for i, p in enumerate(_layers(params["dec"], cfg.n_dec)):
+    for i, p in enumerate(unstack(params["dec"], cfg.n_dec)):
         h, _, _ = L.gqa_decode(p["attn"], _norm(cfg, x, p["mix_norm"]),
                                cache["self_k"][i], cache["self_v"][i], pos,
                                rope_base=10000.0)

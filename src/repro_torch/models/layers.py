@@ -31,7 +31,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "PSpec", "init_params", "abstract_params", "axes_tree", "param_count",
-    "tree_map", "rmsnorm", "softcap", "grad_cast_bf16", "rope", "dense",
+    "tree_map", "leaves", "unflatten_like", "rmsnorm", "softcap",
+    "grad_cast_bf16", "rope", "dense",
     "masked_cache_update", "blockwise_attention", "attn_spec", "gqa_full",
     "gqa_decode", "mlp_spec", "mlp_apply", "embed_spec", "embed_apply",
     "logits_apply",
@@ -66,6 +67,19 @@ def _leaves(tree, prefix=()):
             yield from _leaves(tree[k], prefix + (k,))
     else:
         yield prefix, tree
+
+
+def leaves(tree) -> list:
+    """The leaves of nested dicts in sorted key order (``jax.tree.leaves``'
+    order)."""
+    return [leaf for _, leaf in _leaves(tree)]
+
+
+def unflatten_like(tree, flat_leaves):
+    """A tree shaped as ``tree`` holding ``flat_leaves``, given in
+    ``leaves(tree)``'s order."""
+    paths = [path for path, _ in _leaves(tree)]
+    return _unflatten(tree, dict(zip(paths, flat_leaves, strict=True)))
 
 
 def init_params(spec_tree, *, generator: torch.Generator, device=None):

@@ -14,7 +14,10 @@ vocabularies and the VLM prefix), MLA (``models/mla.py``), MoE FFNs
 RG-LRU (``models/rglru.py``). The encoder-decoder family assembles the
 same blocks in ``models/encdec.py``; run through this module, an
 enc-dec config is its decoder stack alone, as in the reference. One
-device, no mesh (ROADMAP §1 item 4.3); training is item 4.2.
+device, no mesh (ROADMAP §1 item 4.3). Training (``repro_torch.train``)
+differentiates ``lm_forward`` with autograd; with ``cfg.remat`` each
+repeat of the block pattern recomputes its activations in the backward,
+as the reference's ``jax.checkpoint`` over its scan body does.
 
 The functional core (``lm_forward``, ``lm_decode_step``) takes the nested
 dict of tensors; :class:`LanguageModel` is the ``nn.Module`` that holds
@@ -28,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.engine import resolve_device
 from . import layers as L
@@ -40,7 +44,7 @@ from .layers import PSpec
 __all__ = ["LayerKind", "MoeCfg", "MlaCfg", "ArchCfg", "LanguageModel",
            "check_device", "block_spec", "lm_spec",
            "num_params", "lm_forward", "lm_decode_step", "init_cache",
-           "abstract_cache"]
+           "abstract_cache", "remat", "unstack"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -393,9 +397,32 @@ def abstract_cache(cfg: ArchCfg, batch: int, max_len: int):
 # forward / decode
 # ---------------------------------------------------------------------------
 
-def _layer(stage_tree, i: int):
-    """Layer ``i``'s views of a stacked (repeats, ...) tree."""
-    return L.tree_map(lambda a: a[i], stage_tree)
+def unstack(stack_tree, n: int):
+    """Each of the ``n`` layers' views of a stacked (n, ...) tree, from one
+    ``unbind`` per leaf: a backward then stacks each leaf's gradient once,
+    where indexing layer by layer would add ``n`` zero-filled copies of the
+    whole stack."""
+    per_leaf = L.tree_map(lambda a: a.unbind(0), stack_tree)
+    return [L.tree_map(lambda t: t[i], per_leaf) for i in range(n)]
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``jax.checkpoint``'s counterpart) when ``cfg.remat`` is set and grad
+    is on; serving under ``no_grad`` runs ``fn`` as it is."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _stage(x, layer, cfg: ArchCfg):
+    """One repeat of the block pattern: (x, each block's cache entry)."""
+    x = L.grad_cast_bf16(x)
+    caches = []
+    for i, kind in enumerate(cfg.block_pattern):
+        x, c = block_full(kind, layer[str(i)], x, cfg)
+        caches.append(c)
+    return x, caches
 
 
 def lm_forward(params, tokens, cfg: ArchCfg, *, prefix_embeds=None,
@@ -411,12 +438,10 @@ def lm_forward(params, tokens, cfg: ArchCfg, *, prefix_embeds=None,
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
 
     stage_caches = [dict() for _ in cfg.block_pattern]
-    for r in range(cfg.repeats):
-        x = L.grad_cast_bf16(x)
-        layer = _layer(params["stage"], r)
-        for i, kind in enumerate(cfg.block_pattern):
-            x, c = block_full(kind, layer[str(i)], x, cfg)
-            if return_cache:
+    for layer in unstack(params["stage"], cfg.repeats):
+        x, cs = remat(cfg, _stage, x, layer, cfg)
+        if return_cache:
+            for i, c in enumerate(cs):
                 for name, t in c.items():
                     stage_caches[i].setdefault(name, []).append(t)
     caches = None
@@ -472,9 +497,8 @@ def lm_decode_step(params, cache, tokens, pos, cfg: ArchCfg):
     (B, 1, V) float32, cache)."""
     x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
     pos = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
-    for r in range(cfg.repeats):
-        p_r = _layer(params["stage"], r)
-        c_r = _layer(cache["stage"], r)
+    for p_r, c_r in zip(unstack(params["stage"], cfg.repeats),
+                        unstack(cache["stage"], cfg.repeats)):
         for j, kind in enumerate(cfg.block_pattern):
             x, new = block_decode(kind, p_r[str(j)], x, c_r[str(j)], pos,
                                   cfg)

@@ -7,7 +7,9 @@ shard engine's five exchanges in both schedules, its lane stepper, an
 offloaded shard engine (still K2 on the card) and a shard class of the
 service; the LM serving path (the reduced configs of every family, the
 MoE router's choices, the enc-dec decode) on the card against the CPU,
-its prefill/decode consistency, and its device rules.
+its prefill/decode consistency, and its device rules; one train step of
+reduced configs on the card against the CPU, and a checkpoint round trip
+from the card.
 
 Marked ``gpu``; each test decides inside itself whether there is a card
 and skips without one. The file imports no JAX, so it runs on a machine
@@ -693,3 +695,97 @@ def test_cuda_encdec_matches_cpu():
         out[dev] = torch.cat(steps, dim=1)
     assert out["cuda"].device.type == "cuda"
     _lm_agree(out["cuda"], out["cpu"])
+
+
+def _identity_cast(monkeypatch):
+    """``grad_cast_bf16`` as the identity: a float32 step rounds no
+    cotangent to bf16, so two devices' steps agree at float32's
+    tolerance (tests/_train_reference.py)."""
+    from repro_torch.models import moe as LMOE
+    monkeypatch.setattr(LML, "grad_cast_bf16", lambda x: x)
+    monkeypatch.setattr(LMOE, "grad_cast_bf16", lambda x: x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-27b",
+                                  "deepseek-moe-16b", "recurrentgemma-9b",
+                                  "seamless-m4t-medium"])
+def test_cuda_train_step_matches_cpu(arch, monkeypatch):
+    """One float32 train step of a reduced config on the card against the
+    CPU from the same params and batch: loss, grad norm, every gradient
+    and the moments at 1e-4; the params within float32 rounding except
+    where a near-zero gradient may take the other sign (2 lr)."""
+    _need_card()
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import encdec as ED
+    from repro_torch.train import loop as TLOOP
+    from repro_torch.train import optimizer as TOPT
+    _identity_cast(monkeypatch)
+    cfg = LMC.get(arch, reduced=True)
+    spec = (ED.encdec_spec(cfg, cfg.n_enc, cfg.n_dec)
+            if cfg.family == "encdec" else LMM.lm_spec(cfg))
+    cpu = LML.tree_map(lambda t: t.float(), LML.init_params(
+        spec, generator=torch.Generator().manual_seed(0)))
+    batch = SyntheticTokens(DataConfig(vocab=cfg.vocab, global_batch=4,
+                                       seq_len=16)).batch(0)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(4, 16, cfg.d_model,
+                                      generator=torch.Generator()
+                                      .manual_seed(1))
+    oc = TOPT.AdamWConfig(lr_peak=1e-3, warmup_steps=3, total_steps=30)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        # a copy on the CPU too: the step updates its params in place
+        params = LML.tree_map(lambda t: t.to(dev, copy=True), cpu)
+        loss, grads = TLOOP.value_and_grad(TLOOP.make_loss(cfg), params,
+                                           TLOOP.batch_on(batch, dev))
+        params, state, m = TLOOP.make_train_step(cfg, oc)(
+            params, TOPT.adamw_init(params), batch, 1)
+        out[dev] = (loss, m, grads, params, state)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    (loss, m, grads, params, state), want = out["cuda"], out["cpu"]
+    assert loss.device.type == m["grad_norm"].device.type == "cuda"
+    for a, b in ((loss, want[0]), (m["loss"], want[1]["loss"]),
+                 (m["grad_norm"], want[1]["grad_norm"])):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    for got, ref in ((grads, want[2]), (state.m, want[4].m),
+                     (state.v, want[4].v)):
+        for a, b in zip(LML.leaves(got), LML.leaves(ref)):
+            assert a.device.type == "cuda"
+            torch.testing.assert_close(a.cpu(), b, **tol)
+    two_lr = 2 * float(TOPT.warmup_cosine(oc, 1)) * (1 + 1e-3)
+    for a, b, g in zip(LML.leaves(params), LML.leaves(want[3]),
+                       LML.leaves(want[2])):
+        near0 = g.abs() <= tol["atol"] + tol["rtol"] * g.abs()
+        allowed = torch.where(near0, two_lr, 0.0) + 1e-6 + 1e-6 * b.abs()
+        assert bool(((a.cpu() - b).abs() <= allowed).all())
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_round_trip(tmp_path):
+    """A bf16 model and its AdamW state after one step on the card, saved
+    and restored onto the card bit for bit; restored onto the CPU too."""
+    _need_card()
+    from repro_torch.train import checkpoint as TCKPT
+    from repro_torch.train import loop as TLOOP
+    from repro_torch.train import optimizer as TOPT
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    cfg = LMC.get("qwen3-4b", reduced=True)
+    params = LML.init_params(LMM.lm_spec(cfg), generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    batch = SyntheticTokens(DataConfig(vocab=cfg.vocab, global_batch=4,
+                                       seq_len=16)).batch(0)
+    params, state, _ = TLOOP.make_train_step(cfg, TOPT.AdamWConfig())(
+        params, TOPT.adamw_init(params), batch, 0)
+    tree = {"params": params, "opt": state}
+    TCKPT.save(str(tmp_path), 1, tree)
+    for dev in ("cuda", "cpu"):
+        got, meta = TCKPT.restore_latest(str(tmp_path), tree, device=dev)
+        assert meta["step"] == 1
+        for a, b in zip(LML.leaves(got["params"]) + LML.leaves(got["opt"].m)
+                        + LML.leaves(got["opt"].v) + [got["opt"].count],
+                        LML.leaves(params) + LML.leaves(state.m)
+                        + LML.leaves(state.v) + [state.count]):
+            assert a.device.type == dev and a.dtype == b.dtype
+            assert torch.equal(a.cpu().reshape(-1).view(torch.uint8),
+                               b.cpu().reshape(-1).view(torch.uint8))

@@ -1,10 +1,13 @@
 """The port stands alone: no JAX, nothing of the JAX package, and no quiet
 fallback to the CPU.
 
-Every ``.py`` under ``src/repro_torch/``, ``chip_smoke.py`` and
-``lm_precision_probe.py`` is parsed with ``ast``; an import of ``jax``,
-``jaxlib`` or ``repro`` (or any of their submodules) fails the test.
-``repro_torch`` itself is allowed.
+Every ``.py`` under ``src/repro_torch/`` (the training modules of
+``train/``, ``data/`` and ``launch/train.py`` among them),
+``chip_smoke.py`` and ``lm_precision_probe.py`` is parsed with ``ast``;
+an import of ``jax``, ``jaxlib`` or ``repro`` (or any of their
+submodules) fails the test. ``repro_torch`` itself is allowed. Every
+entry point (engines, meshes, LM serving, training, checkpoints)
+raises without a card unless the CPU is asked for.
 """
 import ast
 from pathlib import Path
@@ -20,10 +23,16 @@ from repro_torch.core.engine import Engine
 from repro_torch.core.engine_shardmap import ShardEngine
 from repro_torch.core.mesh import LocalMesh
 from repro_torch import configs as LMC
+from repro_torch import convert
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import layers as LML
 from repro_torch.models import lm as LMM
 from repro_torch.serve import engine as LMS
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch import train as LMLAUNCH
+from repro_torch.train import checkpoint as LMCKPT
+from repro_torch.train import loop as LMLOOP
+from repro_torch.train import optimizer as LMOPT
 
 # The tensors here are tiny: one CPU thread keeps torch's thread pool off
 # the cores that parallel test workers share.
@@ -31,6 +40,9 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+TRAINING = ("train/__init__.py", "train/optimizer.py", "train/loop.py",
+            "train/checkpoint.py", "train/compress.py", "data/__init__.py",
+            "data/pipeline.py", "launch/train.py")
 
 
 def _port_files():
@@ -51,6 +63,8 @@ def _imported_modules(tree):
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
+    port = ROOT / "src" / "repro_torch"
+    assert {port / f for f in TRAINING} <= set(files)
     bad = []
     for f in files:
         for mod in _imported_modules(ast.parse(f.read_text(), str(f))):
@@ -119,3 +133,27 @@ def test_lm_serving_defaults_to_the_card(monkeypatch):
     with pytest.raises(ValueError, match="the generator lies on cpu"):
         LMM.LanguageModel(cfg, generator=torch.Generator().manual_seed(0),
                           device="meta")
+
+
+def test_training_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LMC.get("qwen3-4b", reduced=True)
+    dc = DataConfig(vocab=cfg.vocab, global_batch=2, seq_len=8)
+    args = (cfg, dc, LMOPT.AdamWConfig(), LMLOOP.TrainConfig(steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMLOOP.Trainer(*args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMLAUNCH.main(["--arch", "qwen3-4b", "--reduced", "--steps", "1"])
+    p = LML.init_params(LMM.lm_spec(cfg),
+                       generator=torch.Generator().manual_seed(0))
+    tree = {"params": p, "opt": LMOPT.adamw_init(p)}
+    LMCKPT.save(str(tmp_path), 0, tree)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMCKPT.restore_latest(str(tmp_path), tree)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.adamw_state_from_numpy(cfg, LMOPT.AdamWState(
+            m=LML.tree_map(lambda t: t.float().numpy(), p),
+            v=LML.tree_map(lambda t: t.float().numpy(), p), count=0))
+    out = LMLOOP.Trainer(*args, device="cpu").run()
+    assert out["final_step"] == 0 and out["params"]["embed"].device.type \
+        == "cpu"

@@ -7,6 +7,7 @@
                                      # LM's weights and prompts (default 0)
     python3 chip_smoke.py --lm       # device, platform and lm_serve only
     python3 chip_smoke.py --train    # device, platform and train only
+    python3 chip_smoke.py --shard    # device, platform and lm_shard only
 
 Phases, in order; any failure exits non-zero:
   1. device : the card's name, the device count, nvidia-smi's name and
@@ -186,6 +187,35 @@ Phases, in order; any failure exits non-zero:
               card bit for bit; a Trainer killed at step 2 resumes from
               its step-0 checkpoint and reaches the end. Each part's wall
               is logged.
+     lm_shard: the LM substrate's sharding (repro_torch.sharding, the
+              mesh= path, no hand-written kernel) on a world-1 NCCL
+              process group and a (1, 1) ("data", "model") DeviceMesh,
+              params DTensors placed by param_sharding_rules. (a) qwen3-4b
+              training at full width and depth as the train phase's (b),
+              SHARD_TRAIN_STEPS steps through make_train_step(mesh) and
+              as many through mesh=None from the same --seed params and
+              batches: the losses and grad norms equal, each run's step
+              time, peak memory, and one profiled step of each (launches,
+              idle share). (b) deepseek-moe-16b at full width and depth,
+              batch 8, 512 + 64 tokens, through make_serve_fns(mesh) (the
+              expert-parallel MoE branch) and mesh=None: the mesh's
+              prefill logits and each decode step's (fed mesh=None's
+              greedy tokens) against mesh=None's, held to LM_FAMILY_BF16,
+              the mesh's argmax equal to mesh=None's greedy token at every
+              position; decode ms/step of each, one decode step of each
+              profiled. (c) The graph engine on launch/mesh.py's
+              graph mesh (a ProcessGroupMesh over the NCCL group, one
+              shard): one BFS per exchange through ShardEngine, equal to
+              Engine's exactly, K2's count from 0 before and read after
+              (the "lm_shard_graph" path; with one shard the ring folds
+              without it). (d) Ranks that share the card:
+              4 processes, NCCL and gloo, each collective DTensor needs
+              on CUDA tensors, each result checked; what each backend
+              served is logged, then the functional all-gather that
+              DTensor's redistributes call and a DTensor all-gather on a
+              (2, 2) mesh of the four; a process that crashes is logged
+              with its exit code. No backend serves them all on one card
+              (PERF.md §7), so no (2, 2) run follows.
 Then one JSON line with both kernels' numbers (each with its launches
 on every path, "paths"), the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}.
@@ -197,6 +227,7 @@ import dataclasses
 import gc
 import json
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -308,6 +339,12 @@ TRAIN_MB, TRAIN_MB_LOSS_ATOL, TRAIN_MB_GNORM_RTOL = 2, 0.05, 0.01
 # the checkpoint round trip on the card: the first TRAIN_CKPT_REPEATS of
 # the 36 layers at full width (the whole state is 48 GB)
 TRAIN_CKPT_REPEATS = 2
+# the lm_shard phase: a world-1 NCCL group and a (1, 1) mesh
+SHARD_MESH = ((1, 1), ("data", "model"))
+SHARD_TRAIN_STEPS = 3
+SHARD_GRAPH_SCALE = 16       # the graph mesh's R-MAT (one shard)
+SHARD_PROBE_RANKS = 4
+SHARD_PROBE_TIMEOUT = 90     # seconds a probe process may take
 KERNEL = {
     "name": "segment_combine",
     "route": "cuda",
@@ -2844,6 +2881,321 @@ def phase_train(torch, seed: int) -> None:
         log("train", part=name, wall_s=round(time.perf_counter() - t0, 3))
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_lm_shard(torch, seed: int, rate: float) -> int:
+    """The lm_shard phase (a)-(d). Returns K2's launches on its graph
+    path."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", SHARD_MESH[0],
+                                mesh_dim_names=SHARD_MESH[1])
+        log("lm_shard", backend=dist.get_backend(),
+            world=dist.get_world_size(), mesh=repr(SHARD_MESH))
+        k2 = None
+        for name, run in (("train", shard_train), ("serve", shard_serve),
+                          ("graph", shard_graph)):
+            t0 = time.perf_counter()
+            got = run(torch, mesh, seed, rate)
+            if name == "graph":
+                k2 = got
+            log("lm_shard", part=name, wall_s=round(time.perf_counter() - t0,
+                                                    3))
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    shard_probe()
+    log("lm_shard", part="probe", wall_s=round(time.perf_counter() - t0, 3))
+    return k2
+
+
+def shard_specs(SH, L, mesh, params, spec):
+    return SH.param_sharding_rules(mesh, params, L.axes_tree(spec))
+
+
+def shard_train(torch, mesh, seed: int, rate: float) -> None:
+    """(a) qwen3-4b training, mesh=None then the mesh, from the same
+    params and batches."""
+    from repro_torch import configs
+    from repro_torch import sharding as SH
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    cfg = configs.get(TRAIN_ARCH)
+    spec = LM.lm_spec(cfg)
+    oc = AdamWConfig(**TRAIN_OPT)
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab,
+                                      global_batch=TRAIN_BATCH,
+                                      seq_len=TRAIN_SEQ, seed=seed))
+    runs = {}
+    for name, on in (("none", None), ("mesh", mesh)):
+        params = L.init_params(spec, generator=torch.Generator(
+            device="cuda").manual_seed(seed))
+        if on is not None:
+            params = SH.place_tree(on, params,
+                                   shard_specs(SH, L, on, params, spec))
+            if not all(SH.is_dtensor(t) for t in L.leaves(params)):
+                raise AssertionError("a param is not a DTensor")
+        state = adamw_init(params)
+        step_fn = TL.make_train_step(cfg, oc, on)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses, norms = [], [], []
+        for step in range(SHARD_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, data.batch(step), step)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated()
+        step = SHARD_TRAIN_STEPS
+        batch = data.batch(step)
+        res, busy = profiled(torch, lambda: step_fn(params, state, batch,
+                                                    step),
+                             host_ops=8, lm_shard=cfg.name, step="train",
+                             mesh=name)
+        runs[name] = (losses, norms)
+        log("lm_shard", arch=cfg.name, train_mesh=name, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ, losses=json.dumps(losses),
+            grad_norms=json.dumps(norms),
+            step_s=json.dumps([round(w, 6) for w in walls]),
+            step_s_after_first=float(np.median(walls[1:])),
+            max_memory_allocated=peak, profiled_busy_s=busy)
+        del params, state, m, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l0, n0), (l1, n1) = runs["none"], runs["mesh"]
+    log("lm_shard", arch=cfg.name, check="train_mesh_vs_none",
+        loss_equal=l0 == l1, grad_norm_equal=n0 == n1,
+        max_loss_diff=max(abs(a - b) for a, b in zip(l0, l1)),
+        max_grad_norm_rel=max(abs(a - b) / b for a, b in zip(n1, n0)))
+    if l0 != l1 or n0 != n1:
+        raise AssertionError(f"mesh losses {l1} / norms {n1} against "
+                             f"mesh=None's {l0} / {n0}")
+
+
+def shard_serve(torch, mesh, seed: int, rate: float) -> None:
+    """(b) deepseek-moe-16b serving, mesh=None then the mesh (teacher-
+    forced with mesh=None's greedy tokens), from the same params."""
+    from repro_torch import configs
+    from repro_torch import sharding as SH
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import engine as S
+    arch = LM_MOE_ARCH
+    cfg = configs.get(arch)
+    spec = LM.lm_spec(cfg)
+    B, T, new, max_len = LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN
+    params = L.init_params(spec, generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    # the same storage: on one rank every block is the whole tensor
+    placed = SH.place_tree(mesh, params, shard_specs(SH, L, mesh, params,
+                                                     spec))
+    tokens, _ = lm_prompt(cfg, B, T, seed)
+    out = {}
+    for name, on, p in (("none", None, params), ("mesh", mesh, placed)):
+        prefill, decode, init_cache = S.make_serve_fns(
+            cfg, on, batch=B, max_len=max_len, device="cuda")
+        logits, pcache = prefill(p, tokens)          # warm-up
+        cache = S.place_prefill_cache(cfg, pcache, init_cache(), T)
+        decode(p, cache, S.greedy_token(logits), T)
+        del logits, pcache, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, pcache = prefill(p, tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache = S.place_prefill_cache(cfg, pcache, init_cache(), T)
+        del pcache
+        steps = [logits[:, -1]]
+        toks = out["none"]["tokens"] if name == "mesh" else [
+            S.greedy_token(logits)]
+        pos = torch.full((1,), T, dtype=torch.long, device="cuda")
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(new + 1)]
+        events[0].record()
+        for i in range(new):
+            step, cache = decode(p, cache, toks[i], pos)
+            events[i + 1].record()
+            steps.append(step[:, -1])
+            if name == "none":
+                toks.append(S.greedy_token(step))
+            pos += 1
+        torch.cuda.synchronize()
+        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(new)]
+        steps = [t.full_tensor() if SH.is_dtensor(t) else t for t in steps]
+        out[name] = {"tokens": toks, "logits": torch.stack(steps, 1)}
+        log("lm_shard", arch=arch, serve_mesh=name, batch=B, prompt=T,
+            new_tokens=new, prefill_s=round(prefill_s, 6),
+            decode_ms_median=float(np.median(step_ms)),
+            decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        profiled(torch, lambda: decode(p, cache, toks[0], max_len - 1),
+                 host_ops=5, lm_shard=arch, step="decode", mesh=name)
+        del logits, cache, step
+        gc.collect()
+    want, got = out["none"]["logits"], out["mesh"]["logits"]
+    family_bf16_limits(arch, lm_diff("shard_serve_mesh_vs_none", got, want,
+                                     arch=arch, positions=new + 1))
+    chosen = torch.cat(out["none"]["tokens"], 1)            # (B, new + 1)
+    near_argmax(torch, "shard_serve_tokens", got, chosen)
+    same = float((got.argmax(-1) == chosen).float().mean())
+    log("lm_shard", arch=arch, check="greedy_mesh_vs_none",
+        equal_share=same, logits_equal=bool(torch.equal(got, want)))
+    if same != 1.0:
+        raise AssertionError(f"the mesh's greedy tokens differ from "
+                             f"mesh=None's at {1 - same:.2%} of positions")
+    del params, placed, out, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shard_graph(torch, mesh, seed: int, rate: float) -> int:
+    """(c) ShardEngine on launch/mesh.py's graph mesh over the NCCL
+    group, one BFS per exchange, against Engine. Returns K2's launches."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core import graph as G
+    from repro_torch.core import partition as PT
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.engine_shardmap import ShardEngine
+    from repro_torch.core.mesh import ProcessGroupMesh
+    from repro_torch.kernels import edge_gather
+    from repro_torch.launch.mesh import make_graph_mesh
+    gmesh = make_graph_mesh()
+    if not isinstance(gmesh, ProcessGroupMesh) or gmesh.num_shards != 1:
+        raise AssertionError(f"graph mesh {gmesh!r}")
+    g = G.rmat(SHARD_GRAPH_SCALE, EDGE_FACTOR, seed=GRAPH_SEED,
+               weighted=True).symmetrized()
+    pg = PT.partition_graph(g, 1, method="greedy")
+    root = int(np.flatnonzero(g.out_degrees() > 0)[0])
+    want = Engine(ALG.bfs(), pg, tile_e=TILE_E, tile_r=TILE_R,
+                  device="cuda").run(root=root)
+    total = 0
+    for exchange in EXCHANGES:
+        eng = ShardEngine(ALG.bfs(), pg, mesh=gmesh, exchange=exchange,
+                          tile_e=TILE_E, tile_r=TILE_R)
+        edge_gather.windows_launches = 0
+        got = eng.run(root=root)
+        launched = edge_gather.windows_launches
+        total += launched
+        same_as_engine(got, want, f"lm_shard graph {exchange}")
+        log("lm_shard", graph=f"rmat{SHARD_GRAPH_SCALE}", exchange=exchange,
+            supersteps=got.supersteps, k2_launches=launched,
+            comm=json.dumps(got.comm))
+        del eng
+        gc.collect()
+    if total == 0:
+        raise AssertionError("K2 was not launched on the graph mesh")
+    return total
+
+
+_PROBE = r"""
+import json, sys, datetime
+import torch, torch.distributed as dist
+rank, backend, init = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+P = int(sys.argv[4])
+def say(**kw):
+    print("PROBE " + json.dumps(kw), flush=True)
+torch.cuda.set_device(0)
+try:
+    dist.init_process_group(backend, init_method=init, world_size=P,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=30))
+except Exception as e:
+    say(init=f"{type(e).__name__}: {str(e)[:240]}")
+    sys.exit(0)
+x = torch.arange(2 * P, device="cuda", dtype=torch.float32) + 100 * rank
+every = torch.stack([torch.arange(2 * P, device="cuda",
+                                  dtype=torch.float32) + 100 * r
+                     for r in range(P)])
+def all_reduce():
+    y = x.clone(); dist.all_reduce(y); return y, every.sum(0)
+def all_gather_into_tensor():
+    y = x.new_empty(P * 2 * P); dist.all_gather_into_tensor(y, x)
+    return y, every.reshape(-1)
+def reduce_scatter_tensor():
+    y = x.new_empty(2); dist.reduce_scatter_tensor(y, x)
+    return y, every.sum(0)[2 * rank:2 * rank + 2]
+def all_to_all_single():
+    y = torch.empty_like(x); dist.all_to_all_single(y, x)
+    return y, every[:, 2 * rank:2 * rank + 2].reshape(-1)
+def functional_all_gather():
+    from torch.distributed import _functional_collectives as fc
+    y = fc.all_gather_tensor(x, 0, dist.group.WORLD)
+    return fc.wait_tensor(y), every.reshape(-1)
+def dtensor_mesh_all_gather():
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    mesh = init_device_mesh("cuda", (2, P // 2),
+                            mesh_dim_names=("data", "model"))
+    d = distribute_tensor(every, mesh, [Shard(0), Shard(1)],
+                          src_data_rank=None)
+    return d.full_tensor(), every
+for fn in (all_reduce, all_gather_into_tensor, reduce_scatter_tensor,
+           all_to_all_single, functional_all_gather,
+           dtensor_mesh_all_gather):
+    try:
+        got, want = fn()
+        torch.cuda.synchronize()
+        say(**{fn.__name__: "ok" if torch.equal(got, want)
+               else "wrong values"})
+    except Exception as e:
+        say(**{fn.__name__: f"{type(e).__name__}: {str(e)[:160]}"})
+dist.destroy_process_group()
+"""
+# what DTensor's redistributes need of a backend
+SHARD_PROBE_NEEDED = ("all_reduce", "all_gather_into_tensor",
+                      "reduce_scatter_tensor", "functional_all_gather",
+                      "dtensor_mesh_all_gather")
+
+
+def shard_probe() -> dict:
+    """(d) Whether SHARD_PROBE_RANKS processes that share the card can run
+    what DTensor needs, per backend: each process's verdict on each
+    collective (checked values), its error, or its exit code where it
+    crashed. Returns {backend: whether every rank served every one}."""
+    served = {}
+    for backend in ("nccl", "gloo"):
+        init = f"tcp://localhost:{free_port()}"
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _PROBE, str(r), backend, init,
+             str(SHARD_PROBE_RANKS)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for r in range(SHARD_PROBE_RANKS)]
+        verdicts = []
+        for p in procs:
+            try:
+                stdout, _ = p.communicate(timeout=SHARD_PROBE_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, _ = p.communicate()
+            seen = {}
+            for ln in stdout.splitlines():
+                if ln.startswith("PROBE "):
+                    seen.update(json.loads(ln[6:]))
+            if p.returncode != 0:
+                seen["exit"] = p.returncode
+            verdicts.append(seen)
+        served[backend] = all(d.get(c) == "ok" for d in verdicts
+                              for c in SHARD_PROBE_NEEDED)
+        log("lm_shard", probe=backend, ranks=SHARD_PROBE_RANKS,
+            rank0=json.dumps(verdicts[0]),
+            same_on_every_rank=all(d == verdicts[0] for d in verdicts),
+            serves_dtensor=served[backend])
+    return served
+
+
 def profiled(torch, fn, host_ops: int = 0, **label):
     """Run ``fn`` once under torch.profiler and log its wall time, the
     device's busy time and idle share over that wall, its launches and
@@ -2956,6 +3308,9 @@ def main() -> int:
     if "--train" in args:
         phase_train(torch, seed)
         return 0
+    if "--shard" in args:
+        phase_lm_shard(torch, seed, rate)
+        return 0
     phase_build()
     full = "--kernels" not in args
     records = drive(torch, torch.device("cuda"), rate, full, seed)
@@ -2963,6 +3318,8 @@ def main() -> int:
         phase_dryrun(torch)
         phase_lm_serve(torch, seed, rate)
         phase_train(torch, seed)
+        shard_k2 = phase_lm_shard(torch, seed, rate)
+        records[1]["paths"]["lm_shard_graph"] = shard_k2
     print(json.dumps({"kernels": records}), flush=True)
     if not full:
         return 0

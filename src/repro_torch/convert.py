@@ -19,7 +19,11 @@ decoder-only tree of ``models.lm.lm_spec`` or, for an encoder-decoder
 config, the ``enc``/``dec``/``cross`` tree of ``models.encdec``.
 ``adamw_state_from_numpy`` does the same for the reference's optimizer
 state (its ``AdamWState``: float32 ``m`` and ``v`` trees and a
-``count``), so both packages can step from one state.
+``count``), so both packages can step from one state. With ``mesh=`` (a
+``DeviceMesh``) both place every leaf by ``sharding.param_sharding_rules``
+(each rank keeps its shards of the whole tree it was given; the moments
+take their params' placements, the count stays a plain tensor), so a
+JAX tree and a sharded port tree compute the same thing.
 """
 from __future__ import annotations
 
@@ -74,18 +78,35 @@ def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
     raise ValueError(f"LM params are float32 or bfloat16, not {arr.dtype}")
 
 
-def lm_params_from_numpy(cfg, tree, device=None):
+def _spec(cfg, tree):
+    """The spec tree ``tree`` holds: the enc-dec one when ``cfg`` is an
+    encoder-decoder and the tree holds an ``enc`` stack, else the
+    decoder-only one."""
+    from .models import encdec as ED
+    from .models import lm as LM
+    if cfg.family == "encdec" and isinstance(tree, dict) and "enc" in tree:
+        return ED.encdec_spec(cfg, cfg.n_enc, cfg.n_dec)
+    return LM.lm_spec(cfg)
+
+
+def _placed(spec, tree, mesh):
+    from . import sharding as SH
+    from .models.layers import axes_tree
+    specs = SH.param_sharding_rules(mesh, spec, axes_tree(spec))
+    return SH.place_tree(mesh, tree, specs)
+
+
+def lm_params_from_numpy(cfg, tree, device=None, mesh=None):
     """The port's LM params for ``cfg`` from a nested dict of numpy arrays
     in the reference's layout. Every key and shape must be the spec's:
     ``models.encdec.encdec_spec(cfg, cfg.n_enc, cfg.n_dec)`` when ``cfg``
     is an encoder-decoder and the tree holds an ``enc`` stack, else
     ``models.lm.lm_spec(cfg)`` (the decoder-only model, as the reference
     builds from any config). Each leaf keeps its dtype (float32 or
-    bfloat16). Lands on ``device``: the card unless "cpu" is asked for."""
+    bfloat16). Lands on ``device``: the card unless "cpu" is asked for;
+    with ``mesh``, placed by the rules on it."""
     from .core.engine import resolve_device
-    from .models import encdec as ED
-    from .models import lm as LM
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.device_type)
 
     def walk(spec, node, path):
         if isinstance(spec, dict):
@@ -101,26 +122,24 @@ def lm_params_from_numpy(cfg, tree, device=None):
                              f"{spec.shape}")
         return _leaf_tensor(arr).to(device)
 
-    if cfg.family == "encdec" and isinstance(tree, dict) and "enc" in tree:
-        spec = ED.encdec_spec(cfg, cfg.n_enc, cfg.n_dec)
-    else:
-        spec = LM.lm_spec(cfg)
-    return walk(spec, tree, "")
+    spec = _spec(cfg, tree)
+    out = walk(spec, tree, "")
+    return out if mesh is None else _placed(spec, out, mesh)
 
 
-def adamw_state_from_numpy(cfg, state, device=None):
+def adamw_state_from_numpy(cfg, state, device=None, mesh=None):
     """The port's ``AdamWState`` for ``cfg`` from the reference's (any
     object with ``m`` and ``v``, nested dicts of float32 numpy arrays in
     the params' layout, and ``count``): each moment tree checked key for
     key and shape for shape as ``lm_params_from_numpy`` checks params, the
     count a 0-d int32 tensor. Lands on ``device``: the card unless "cpu"
-    is asked for."""
+    is asked for; with ``mesh``, placed by the rules on it."""
     from .core.engine import resolve_device
     from .models.layers import leaves
     from .train.optimizer import AdamWState
-    device = resolve_device(device)
-    m = lm_params_from_numpy(cfg, state.m, device)
-    v = lm_params_from_numpy(cfg, state.v, device)
+    device = resolve_device(device if mesh is None else mesh.device_type)
+    m = lm_params_from_numpy(cfg, state.m, device, mesh)
+    v = lm_params_from_numpy(cfg, state.v, device, mesh)
     if any(t.dtype != torch.float32 for t in leaves(m) + leaves(v)):
         raise ValueError("AdamW moments are float32")
     count = torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,

@@ -12,7 +12,10 @@ its self-attention KV growing in the cache and its cross-attention
 scored in float32 against the static encoder KV. Training
 differentiates ``encdec_forward``; with ``cfg.remat`` each encoder and
 decoder layer recomputes its activations in the backward, as the
-reference's ``jax.checkpoint`` over its scan bodies does.
+reference's ``jax.checkpoint`` over its scan bodies does. ``mesh=`` runs
+the same code on DTensors, as ``lm.py`` does: every layer's input
+pinned over the batch axes, the logits batch x vocab sharded, and the
+serving cache placed by ``encdec_cache_axes``.
 """
 from __future__ import annotations
 
@@ -21,13 +24,14 @@ from typing import Any, Dict
 
 import torch
 
+from .. import sharding as SH
 from . import layers as L
 from .layers import PSpec
-from .lm import ArchCfg, _logits, _norm, remat, unstack
+from .lm import ArchCfg, _constrain_act, _logits, _norm, remat, unstack
 
 __all__ = ["encdec_spec", "encode", "decode_train", "encdec_forward",
            "encdec_decode_step", "init_encdec_cache", "abstract_encdec_cache",
-           "fill_cross_cache"]
+           "encdec_cache_axes", "fill_cross_cache"]
 
 
 def _norm_spec(cfg: ArchCfg, stack):
@@ -79,51 +83,57 @@ def _cross_kv(p, enc_out):
     return k, v
 
 
-def encode(params, frames, cfg: ArchCfg):
-    """frames: (B, T, d_model) stub embeddings -> the encoder's output."""
-    x = frames
-    for p in unstack(params["enc"], cfg.n_enc):
-        x = remat(cfg, _enc_layer, x, p, cfg)
-    return L.rmsnorm(x, params["enc_norm"])
+def encode(params, frames, cfg: ArchCfg, mesh=None):
+    """frames: (B, T, d_model) stub embeddings -> the encoder's output.
+    ``mesh``: as ``lm.lm_forward``'s (``frames`` placed over the batch
+    axes)."""
+    with SH.on_mesh(mesh):
+        x = SH.constrain(frames, mesh, ("batch", None, None))
+        for p in unstack(params["enc"], cfg.n_enc):
+            x = remat(cfg, _enc_layer, x, p, cfg, mesh)
+        return L.rmsnorm(x, params["enc_norm"])
 
 
-def _enc_layer(x, p, cfg: ArchCfg):
-    x = L.grad_cast_bf16(x)
+def _enc_layer(x, p, cfg: ArchCfg, mesh=None):
+    x = L.grad_cast_bf16(_constrain_act(x, mesh, cfg))
     h, _ = L.gqa_full(p["attn"], _norm(cfg, x, p["mix_norm"]),
                       rope_base=10000.0, causal=False,
                       q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    x = x + h
-    return x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
-                           act="gelu")
+    x = SH.settle(x + h)
+    return SH.settle(x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
+                                     act="gelu"))
 
 
-def _dec_layer(x, p, enc_out, cfg: ArchCfg):
-    x = L.grad_cast_bf16(x)
+def _dec_layer(x, p, enc_out, cfg: ArchCfg, mesh=None):
+    x = L.grad_cast_bf16(_constrain_act(x, mesh, cfg))
     h, _ = L.gqa_full(p["attn"], _norm(cfg, x, p["mix_norm"]),
                       rope_base=10000.0, causal=True,
                       q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    x = x + h
-    x = x + _cross_full(p["cross"], _norm(cfg, x, p["cross_norm"]),
-                        _cross_kv(p["cross"], enc_out), cfg)
-    return x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
-                           act="gelu")
+    x = SH.settle(x + h)
+    x = SH.settle(x + _cross_full(p["cross"], _norm(cfg, x, p["cross_norm"]),
+                                  _cross_kv(p["cross"], enc_out), cfg))
+    return SH.settle(x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
+                                     act="gelu"))
 
 
-def decode_train(params, enc_out, tokens, cfg: ArchCfg,
+def decode_train(params, enc_out, tokens, cfg: ArchCfg, mesh=None,
                  last_only: bool = False):
     """Teacher-forced decoder over tokens (B, S): float32 logits (B, S,
     V), or (B, 1, V) with ``last_only``."""
-    x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
-    for p in unstack(params["dec"], cfg.n_dec):
-        x = remat(cfg, _dec_layer, x, p, enc_out, cfg)
-    if last_only:
-        x = x[:, -1:]
-    x = _norm(cfg, x, params["final_norm"])
-    return _logits(params, x, cfg)
+    with SH.on_mesh(mesh):
+        tokens = SH.constrain(tokens, mesh, ("batch", None))
+        x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
+        for p in unstack(params["dec"], cfg.n_dec):
+            x = remat(cfg, _dec_layer, x, p, enc_out, cfg, mesh)
+        if last_only:
+            x = x[:, -1:]
+        x = _norm(cfg, x, params["final_norm"])
+        return _logits(params, x, cfg, mesh)
 
 
-def encdec_forward(params, frames, tokens, cfg: ArchCfg):
-    return decode_train(params, encode(params, frames, cfg), tokens, cfg)
+def encdec_forward(params, frames, tokens, cfg: ArchCfg, mesh=None):
+    return decode_train(params, encode(params, frames, cfg, mesh), tokens,
+                        cfg, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -161,22 +171,40 @@ def fill_cross_cache(params, enc_out, cache, cfg: ArchCfg):
     ``cache`` (in place, cast to its dtype); returns ``cache``."""
     for i, p in enumerate(unstack(params["dec"], cfg.n_dec)):
         k, v = _cross_kv(p["cross"], enc_out)
-        cache["cross_k"][i].copy_(k)
-        cache["cross_v"][i].copy_(v)
+        for buf, new in ((cache["cross_k"][i], k), (cache["cross_v"][i], v)):
+            if SH.is_dtensor(buf):
+                SH.paste(buf, new)      # each rank into its own block
+            else:
+                buf.copy_(new)
     return cache
 
 
-def encdec_decode_step(params, cache, tokens, pos, cfg: ArchCfg):
+def encdec_cache_axes(cfg, n_dec, batch, max_len, enc_len):
+    """Logical sharding axes of the cache: batch over data, the KV
+    sequence over model."""
+    return {k: "stack,batch,kv_seq_model,.,." for k in
+            _cache_shapes(cfg, n_dec, batch, max_len, enc_len)}
+
+
+def encdec_decode_step(params, cache, tokens, pos, cfg: ArchCfg,
+                       mesh=None):
     """One decoder token. tokens: (B, 1); pos: an int or a one-element
     int64 tensor. Writes the self-attention k/v into ``cache`` in place
-    and returns (logits (B, 1, V) float32, cache)."""
+    and returns (logits (B, 1, V) float32, cache). ``mesh``: as
+    ``lm.lm_decode_step``'s (the cache placed by ``encdec_cache_axes``)."""
+    with SH.on_mesh(mesh):
+        tokens = SH.constrain(tokens, mesh, ("batch", None))
+        return _decode_step(params, cache, tokens, pos, cfg, mesh)
+
+
+def _decode_step(params, cache, tokens, pos, cfg, mesh):
     x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
     pos = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
     for i, p in enumerate(unstack(params["dec"], cfg.n_dec)):
         h, _, _ = L.gqa_decode(p["attn"], _norm(cfg, x, p["mix_norm"]),
                                cache["self_k"][i], cache["self_v"][i], pos,
                                rope_base=10000.0)
-        x = x + h
+        x = SH.settle(x + h)
         # cross attention against the static encoder KV, in float32
         xk, xv = cache["cross_k"][i], cache["cross_v"][i]
         xn = _norm(cfg, x, p["cross_norm"])
@@ -188,8 +216,9 @@ def encdec_decode_step(params, cache, tokens, pos, cfg: ArchCfg):
         a = torch.softmax(s / math.sqrt(hd), dim=-1)
         o = torch.einsum("bhgt,bthk->bhgk", a, xv.float()).to(x.dtype)
         o = o.reshape(B, 1, H, hd)
-        x = x + torch.einsum("bshk,hkd->bsd", o, p["cross"]["wo"])
-        x = x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
-                            act="gelu")
+        x = SH.settle(x + torch.einsum("bshk,hkd->bsd", o,
+                                       p["cross"]["wo"]))
+        x = SH.settle(x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
+                                      act="gelu"))
     x = _norm(cfg, x, params["final_norm"])
-    return _logits(params, x, cfg), cache
+    return _logits(params, x, cfg, mesh), cache

@@ -16,9 +16,11 @@ reference asks in float32 of bf16 operands (``preferred_element_type``)
 is taken on the operands cast to float32: the products of bf16 values
 are exact in float32 and the sum is a float32 one, as the reference's.
 
-One device, no SPMD: ``masked_cache_update`` writes the new entry in
-place at ``pos`` (the reference's iota == pos select gives the same
-values without a dynamic index on a sharded axis).
+On a mesh the same functions run on DTensors (``repro_torch.sharding``).
+``masked_cache_update`` writes the new entry in place at ``pos`` (the
+reference's iota == pos select gives the same values without a dynamic
+index on a sharded axis); into a DTensor cache each rank writes its own
+block (``sharding.write_at``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .. import sharding as SH
 
 __all__ = [
     "PSpec", "init_params", "abstract_params", "axes_tree", "param_count",
@@ -195,6 +199,8 @@ def masked_cache_update(cache, new, pos, *, axis: int = 1):
         raise ValueError(f"new entry has {new.shape[axis]} positions, not 1")
     pos = torch.as_tensor(pos, dtype=torch.long,
                           device=cache.device).reshape(1)
+    if SH.is_dtensor(cache):
+        return SH.write_at(cache, new, pos, axis)
     cache.index_copy_(axis, pos, new.to(cache.dtype))
     return cache
 
@@ -228,7 +234,17 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     ``skip_masked_blocks``: visit only the kv blocks that can be visible:
     a band of ceil((q_chunk+window)/kv_chunk)+1 blocks for window layers,
     the causal prefix for global ones. The numerics are the full loop's.
+
+    On a mesh (DTensor q, k, v) each rank attends its own (batch, head)
+    block: batch over the batch axes, heads over "model" where the kv
+    heads divide, a region of plain tensors (``_per_head``).
     """
+    if SH.is_dtensor(q):
+        return _per_head(blockwise_attention, q, k, v, causal=causal,
+                         window=window, q_positions=q_positions,
+                         logit_cap=logit_cap, q_chunk=q_chunk,
+                         kv_chunk=kv_chunk, scale=scale,
+                         skip_masked_blocks=skip_masked_blocks)
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -299,6 +315,20 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     out = out.reshape(B, Hkv, G, Sq_pad, hd)[:, :, :, :Sq]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
     return out.to(q.dtype)
+
+
+def _per_head(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` on each rank's (batch, head) block of DTensor
+    q, k, v (B, S, H or Hkv, hd): attention mixes neither, so the blocks'
+    outputs are the output's, and each block's gradients its own. The
+    heads are split over "model" only where the kv heads divide (q's
+    head h = kv * G + g then splits with its kv head)."""
+    mesh = q.device_mesh
+    spec = SH.logical_to_spec(mesh, ("batch", None, "heads", None),
+                              tuple(k.shape))
+    pl = SH.placements(mesh, spec)
+    out = fn(*(SH.local_region(t, spec, pl) for t in (q, k, v)), **kw)
+    return SH.from_region(out, mesh, pl, q.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -374,29 +404,83 @@ def gqa_decode(p, x, cache_k, cache_v, pos, *, rope_base: float = 10000.0,
     Scores are float32 over the WHOLE Smax, masked to t <= pos (and
     t > pos - window), as the reference reads them. Returns (out,
     cache_k, cache_v)."""
-    B = x.shape[0]
-    dev = x.device
-    pos = torch.as_tensor(pos, dtype=torch.long, device=dev).reshape(1)
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
     q, k_new, v_new = _project_qkv(p, x, pos, rope_base=rope_base,
                                    qk_norm=qk_norm)
     masked_cache_update(cache_k, k_new, pos, axis=1)
     masked_cache_update(cache_v, v_new, pos, axis=1)
-    Smax, Hkv = cache_k.shape[1], cache_k.shape[2]
+    attend = _attend_split if SH.is_dtensor(cache_k) else _attend
+    out = attend(q, cache_k, cache_v, pos, window=window,
+                 logit_cap=logit_cap).to(x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, cache_k, cache_v
+
+
+def _decode_scores(q, cache_k, pos, first, *, window, logit_cap):
+    """float32 scores (B, Hkv, G, T) of one query token q (B, 1, H, hd)
+    against cache positions ``first`` .. ``first + T - 1`` of ``cache_k``
+    (B, T, Hkv, hd), masked to t <= pos (and t > pos - window)."""
+    B, T, Hkv = cache_k.shape[:3]
     H = q.shape[2]
     qg = q.reshape(B, Hkv, H // Hkv, -1)
     s = torch.einsum("bhgk,bthk->bhgt", qg.float(), cache_k.float())
     s = s / math.sqrt(q.shape[-1])
     s = softcap(s, logit_cap)
-    t = torch.arange(Smax, device=dev)
+    t = torch.arange(T, device=s.device) + first
     mask = t <= pos
     if window is not None:
         mask = mask & (t > pos - window)
-    s = torch.where(mask, s, -math.inf)
+    return torch.where(mask, s, -math.inf)
+
+
+def _attend(q, cache_k, cache_v, pos, *, window, logit_cap):
+    """Attention of q (B, 1, H, hd) over the whole cache: float32
+    (B, 1, H, hd)."""
+    s = _decode_scores(q, cache_k, pos, 0, window=window,
+                       logit_cap=logit_cap)
     a = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgt,bthk->bhgk", a, cache_v.float())
-    out = out.reshape(B, 1, H, -1).to(x.dtype)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, cache_k, cache_v
+    return out.reshape(q.shape[0], 1, q.shape[2], -1)
+
+
+def _attend_split(q, cache_k, cache_v, pos, *, window, logit_cap):
+    """``_attend`` over a DTensor cache whose sequence is split over
+    "model" (``lm.cache_axes``; flash-decoding): each rank attends its
+    block of positions as ``_attend`` does (softmax, then the values),
+    and the blocks' outputs are summed over "model", each weighted by
+    its share of the whole softmax's mass, l_i exp(m_i - M) / sum_j
+    l_j exp(m_j - M) with m_i the block's max score, l_i its sum of
+    exp(s - m_i) and M the max of all (all-reduces over "model"). One
+    block weighs exactly 1. Serving only (no autograd)."""
+    mesh = cache_k.device_mesh
+    cspec = SH.logical_to_spec(mesh, ("batch", "kv_seq_model", None, None),
+                               tuple(cache_k.shape))
+    qspec = (cspec[0], None, None, None)
+    cpl = SH.placements(mesh, cspec)
+    ck, cv = (t.redistribute(mesh, cpl) for t in (cache_k, cache_v))
+    ql = q.redistribute(mesh, SH.placements(mesh, qspec)).to_local()
+    s = _decode_scores(ql, ck.to_local(), pos.to(ql.device),
+                       SH.local_offset(ck, 1), window=window,
+                       logit_cap=logit_cap)
+    m = s.amax(dim=-1)
+    seen = torch.isfinite(m)           # a block may see no position
+    m0 = torch.where(seen, m, 0.0)
+    a = torch.where(seen[..., None], torch.softmax(s, dim=-1), 0.0)
+    o = torch.einsum("bhgt,bthk->bhgk", a, cv.to_local().float())
+    if cspec[1] is not None:
+        group = mesh.get_group("model")
+        top = m.clone()                # some block sees pos itself
+        torch.distributed.all_reduce(top, torch.distributed.ReduceOp.MAX,
+                                     group=group)
+        w = torch.where(seen, torch.exp(s - m0[..., None]).sum(dim=-1)
+                        * torch.exp(m0 - top), 0.0)
+        total = w.clone()
+        torch.distributed.all_reduce(total, group=group)
+        o = o * (w / total)[..., None]
+        torch.distributed.all_reduce(o, group=group)
+    out = o.reshape(ql.shape[0], 1, ql.shape[2], -1)
+    return SH.from_region(out, mesh, SH.placements(mesh, qspec),
+                          q.shape[:3] + (cache_v.shape[-1],))
 
 
 # ---------------------------------------------------------------------------
@@ -450,11 +534,40 @@ def embed_spec(vocab: int, d_model: int) -> PSpec:
 
 def embed_apply(table, tokens, *, scale: bool = False):
     """Rows of ``table``; with ``scale`` times sqrt(d) rounded to the
-    table's dtype first (bf16 73.32 -> 73.5 for d = 5376)."""
-    x = table[tokens]
+    table's dtype first (bf16 73.32 -> 73.5 for d = 5376). A DTensor
+    table is looked up block by block (``_embed_split``)."""
+    x = _embed_split(table, tokens) if SH.is_dtensor(table) else \
+        table[tokens]
     if scale:
         x = x * torch.tensor(math.sqrt(table.shape[1]), dtype=x.dtype).item()
     return x
+
+
+def _embed_split(table, tokens):
+    """The rows of a DTensor ``table`` (V, d) for ``tokens`` (B, S), as
+    the reference's sharded gather computes them: each rank looks its
+    batch block's tokens up in its own block of the vocabulary (zero
+    where another block holds the row), and a sum over the vocabulary's
+    axes completes the rows. Each rank's table gradient is its tokens'
+    part, summed over the batch axes."""
+    mesh = table.device_mesh
+    vocab = tuple(n for n, p in zip(mesh.mesh_dim_names, table.placements)
+                  if p.is_shard(0))
+    tok = SH.constrain(tokens, mesh, ("batch", None))
+    batch = SH.logical_to_spec(mesh, ("batch", None), tuple(tok.shape))[0]
+    tspec = (vocab[0] if len(vocab) == 1 else (vocab or None), None)
+    blocks = table.redistribute(mesh, SH.placements(mesh, tspec))
+    off = SH.local_offset(blocks, 0)
+    local = blocks.to_local(grad_placements=SH.placements(
+        mesh, tspec, SH.axes_of(batch)))
+    idx = tok.to_local() - off
+    mine = (idx >= 0) & (idx < local.shape[0])
+    rows = torch.where(mine[..., None],
+                       local[idx.clamp(0, local.shape[0] - 1)], 0)
+    out = SH.from_region(rows, mesh, SH.placements(
+        mesh, (batch, None, None), vocab), tuple(tok.shape) + (
+            table.shape[1],))
+    return SH.settle(out)
 
 
 def logits_apply(table_or_w, x, *, transpose: bool = True,

@@ -13,8 +13,15 @@ vocabularies and the VLM prefix), MLA (``models/mla.py``), MoE FFNs
 (``models/moe.py``), xLSTM's mLSTM and sLSTM (``models/ssm.py``) and
 RG-LRU (``models/rglru.py``). The encoder-decoder family assembles the
 same blocks in ``models/encdec.py``; run through this module, an
-enc-dec config is its decoder stack alone, as in the reference. One
-device, no mesh (ROADMAP §1 item 4.3). Training (``repro_torch.train``)
+enc-dec config is its decoder stack alone, as in the reference.
+
+With ``mesh=`` (a ``DeviceMesh``; ``repro_torch.sharding``) the same code
+runs on DTensors: params placed by ``sharding.param_sharding_rules``,
+tokens and caches by the batch axes and ``cache_axes``, the activations
+pinned at block boundaries as the reference's ``with_sharding_constraint``
+pins them (``_constrain_act``), the logits kept batch x vocab sharded, and
+the MoE layers expert-parallel over "model" (``models/moe.py``). Without
+a mesh nothing of that runs. Training (``repro_torch.train``)
 differentiates ``lm_forward`` with autograd; with ``cfg.remat`` each
 repeat of the block pattern recomputes its activations in the backward,
 as the reference's ``jax.checkpoint`` over its scan body does.
@@ -33,6 +40,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding as SH
 from ..core.engine import resolve_device
 from . import layers as L
 from . import mla as MLA
@@ -44,7 +52,8 @@ from .layers import PSpec
 __all__ = ["LayerKind", "MoeCfg", "MlaCfg", "ArchCfg", "LanguageModel",
            "check_device", "block_spec", "lm_spec",
            "num_params", "lm_forward", "lm_decode_step", "init_cache",
-           "abstract_cache", "remat", "unstack"]
+           "abstract_cache", "cache_axes", "place_cache", "remat",
+           "unstack"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,15 +235,32 @@ def _norm(cfg, x, w):
     return L.rmsnorm(x, w, plus_one=cfg.norm_plus_one)
 
 
-def _moe_capacity(cfg: ArchCfg, n_tokens: int) -> int:
-    """Slots per expert for ``n_tokens`` tokens: capacity_factor times
-    the mean load, at least 8, rounded up to a multiple of 8."""
+def _constrain_act(x, mesh, cfg=None):
+    """Pin activations to (batch over data(+pod), seq/feature replicated)
+    at block boundaries, as the reference does against SPMD propagation.
+    With ``cfg.seq_shard_acts`` (sequence parallelism) the boundary
+    activations are also sharded over "model" on the sequence axis. A
+    redistribute of the DTensor; without a mesh, ``x`` as it is."""
+    if mesh is None:
+        return x
+    seq = "seq_model" if (cfg is not None and cfg.seq_shard_acts
+                          and x.ndim == 3) else None
+    logical = (("batch", seq) + (None,) * (x.ndim - 2) if x.ndim >= 2
+               else ("batch",))
+    return SH.constrain(x, mesh, logical)
+
+
+def _moe_capacity(cfg: ArchCfg, n_tokens_local: int) -> int:
+    """Slots per expert for ``n_tokens_local`` tokens (one data shard's):
+    capacity_factor times the mean load, at least 8, rounded up to a
+    multiple of 8."""
     mo = cfg.moe
-    c = math.ceil(n_tokens * mo.topk * mo.capacity_factor / mo.n_routed)
+    c = math.ceil(n_tokens_local * mo.topk * mo.capacity_factor
+                  / mo.n_routed)
     return max(8, -(-c // 8) * 8)
 
 
-def _apply_ffn(kind, p, x, cfg):
+def _apply_ffn(kind, p, x, cfg, mesh=None):
     if kind.ffn == "mlp":
         h = L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]), act=cfg.act)
         if cfg.post_norms:
@@ -242,17 +268,24 @@ def _apply_ffn(kind, p, x, cfg):
         return x + L.grad_cast_bf16(h)
     if kind.ffn == "moe":
         B, S, _ = x.shape
+        dp = 1
+        if mesh is not None:
+            dp = SH.axis_size(mesh, SH.batch_axes(mesh))
+        cap = _moe_capacity(cfg, max(1, (B * S) // dp))
         h = MOE.moe_apply(p["moe"], _norm(cfg, x, p["ffn_norm"]),
                           topk=cfg.moe.topk, n_routed=cfg.moe.n_routed,
-                          capacity=_moe_capacity(cfg, max(1, B * S)),
-                          renormalize=cfg.moe.renormalize)
+                          capacity=cap, renormalize=cfg.moe.renormalize,
+                          mesh=mesh)
         return x + h
     return x
 
 
-def block_full(kind: LayerKind, p, x, cfg: ArchCfg):
+def block_full(kind: LayerKind, p, x, cfg: ArchCfg, mesh=None):
     """Prefill through one block. Returns (x, cache_entry): k/v, the MLA
-    latents, or a recurrent mixer's state after the last position."""
+    latents, or a recurrent mixer's state after the last position. On a
+    mesh the residual stream is settled (``sharding.settle``) on entry,
+    after the mixer and on exit."""
+    x = SH.settle(x)
     if kind.mixer == "attn":
         h, (k, v) = L.gqa_full(
             p["attn"], _norm(cfg, x, p["mix_norm"]),
@@ -284,14 +317,18 @@ def block_full(kind: LayerKind, p, x, cfg: ArchCfg):
         x = x + h
     else:
         raise ValueError(kind.mixer)
-    return _apply_ffn(kind, p, x, cfg), cache
+    x = SH.settle(x)
+    return SH.settle(_apply_ffn(kind, p, x, cfg, mesh)), cache
 
 
-def block_decode(kind: LayerKind, p, x, cache, pos, cfg: ArchCfg):
+def block_decode(kind: LayerKind, p, x, cache, pos, cfg: ArchCfg,
+                 mesh=None):
     """Single-token decode through one block. Attention k/v and MLA
     latents are written into ``cache`` in place at ``pos``; a recurrent
     mixer returns its new state. Returns (x, the layer's new cache
-    entry)."""
+    entry). On a mesh the residual stream is settled as in
+    ``block_full``."""
+    x = SH.settle(x)
     if kind.mixer == "attn":
         h, ck, cv = L.gqa_decode(
             p["attn"], _norm(cfg, x, p["mix_norm"]), cache["k"],
@@ -322,7 +359,8 @@ def block_decode(kind: LayerKind, p, x, cache, pos, cfg: ArchCfg):
         x = x + h
     else:
         raise ValueError(kind.mixer)
-    return _apply_ffn(kind, p, x, cfg), cache
+    x = SH.settle(x)
+    return SH.settle(_apply_ffn(kind, p, x, cfg, mesh)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +431,32 @@ def abstract_cache(cfg: ArchCfg, batch: int, max_len: int):
         sh, dtype=dt, device="meta"))
 
 
+def cache_axes(cfg: ArchCfg, batch: int, max_len: int):
+    """Logical sharding axes matching the cache tree: batch over data,
+    the KV sequence over model (flash-decoding split); the stack axis of
+    a stage leaf unsharded."""
+    def axes(sh):
+        if len(sh) >= 2 and sh[1] == max_len:
+            return ["batch", "kv_seq_model"] + ["."] * (len(sh) - 2)
+        return ["batch"] + ["."] * (len(sh) - 1)
+
+    def mk(stacked):
+        return lambda name, sh, dt: ",".join(
+            ["stack"] + axes(sh[1:]) if stacked else axes(sh))
+    out = _make_cache(cfg, batch, max_len, mk(True))
+    if cfg.tail:
+        out["tail"] = _make_cache(cfg, batch, max_len, mk(False))["tail"]
+    return out
+
+
+def place_cache(cache, cfg: ArchCfg, mesh, *, batch: int, max_len: int):
+    """``cache`` (``init_cache``'s tree) placed on ``mesh`` by
+    ``cache_axes``."""
+    specs = SH.param_sharding_rules(mesh, cache,
+                                    cache_axes(cfg, batch, max_len))
+    return SH.place_tree(mesh, cache, specs)
+
+
 # ---------------------------------------------------------------------------
 # forward / decode
 # ---------------------------------------------------------------------------
@@ -415,31 +479,48 @@ def remat(cfg, fn, *args):
     return fn(*args)
 
 
-def _stage(x, layer, cfg: ArchCfg):
+def _stage(x, layer, cfg: ArchCfg, mesh=None):
     """One repeat of the block pattern: (x, each block's cache entry)."""
-    x = L.grad_cast_bf16(x)
+    x = L.grad_cast_bf16(_constrain_act(x, mesh, cfg))
     caches = []
     for i, kind in enumerate(cfg.block_pattern):
-        x, c = block_full(kind, layer[str(i)], x, cfg)
+        x, c = block_full(kind, layer[str(i)], x, cfg, mesh)
         caches.append(c)
-    return x, caches
+    return _constrain_act(x, mesh, cfg), caches
 
 
-def lm_forward(params, tokens, cfg: ArchCfg, *, prefix_embeds=None,
-               return_cache: bool = False, last_only: bool = False):
+def lm_forward(params, tokens, cfg: ArchCfg, *, mesh=None,
+               prefix_embeds=None, return_cache: bool = False,
+               last_only: bool = False):
     """tokens: (B, S) int64 tensor. prefix_embeds: optional (B, Sp, D)
     stub prefix (VLM), placed before the tokens. Returns float32 logits
     (B, S_total, V), or (B, 1, V) with ``last_only``, and with
     ``return_cache`` the prefill KV caches: stacked (repeats, B, S_total,
     Hkv, hd) per stage block, k roped, not padded to a max_len, and each
-    recurrent mixer's state after the last position."""
+    recurrent mixer's state after the last position.
+
+    ``mesh``: a ``DeviceMesh``; params are DTensors placed by the rules,
+    tokens and the prefix are placed over the batch axes (a plain tensor
+    is taken as the whole batch), and the results are DTensors."""
+    with SH.on_mesh(mesh):
+        return _forward(params, tokens, cfg, mesh, prefix_embeds,
+                        return_cache, last_only)
+
+
+def _forward(params, tokens, cfg, mesh, prefix_embeds, return_cache,
+             last_only):
+    if mesh is not None:
+        tokens = SH.constrain(tokens, mesh, ("batch", None))
+        if prefix_embeds is not None:
+            prefix_embeds = SH.constrain(prefix_embeds, mesh,
+                                         ("batch", None, None))
     x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
 
     stage_caches = [dict() for _ in cfg.block_pattern]
     for layer in unstack(params["stage"], cfg.repeats):
-        x, cs = remat(cfg, _stage, x, layer, cfg)
+        x, cs = remat(cfg, _stage, x, layer, cfg, mesh)
         if return_cache:
             for i, c in enumerate(cs):
                 for name, t in c.items():
@@ -454,18 +535,18 @@ def lm_forward(params, tokens, cfg: ArchCfg, *, prefix_embeds=None,
         if return_cache:
             caches["tail"] = {}
         for i, kind in enumerate(cfg.tail):
-            x, c = block_full(kind, params["tail"][str(i)], x, cfg)
+            x, c = block_full(kind, params["tail"][str(i)], x, cfg, mesh)
             if return_cache:
                 caches["tail"][str(i)] = c
 
     if last_only:
         x = x[:, -1:]  # serve prefill: only the last position's logits
     x = _norm(cfg, x, params["final_norm"])
-    logits = _logits(params, x, cfg)
+    logits = _logits(params, x, cfg, mesh)
     return (logits, caches) if return_cache else logits
 
 
-def _logits(params, x, cfg: ArchCfg):
+def _logits(params, x, cfg: ArchCfg, mesh=None):
     if cfg.tie_embeddings:
         logits = L.logits_apply(params["embed"], x, transpose=True,
                                 cap=cfg.logit_cap)
@@ -476,7 +557,8 @@ def _logits(params, x, cfg: ArchCfg):
         # mask padding ids out of the softmax
         vid = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(vid < cfg.vocab, logits, -1e9)
-    return logits
+    # on a mesh: batch over data, vocab over model, never replicated
+    return SH.constrain(logits, mesh, ("batch", None, "vocab"))
 
 
 def _write_back(buffers, new) -> None:
@@ -485,30 +567,41 @@ def _write_back(buffers, new) -> None:
     recurrent state replaces the old one, as the reference's stacked
     update does."""
     for name, t in new.items():
-        if t is not buffers[name]:
-            buffers[name].copy_(t)
+        buf = buffers[name]
+        if t is buf:
+            continue
+        if SH.is_dtensor(buf):
+            t = t.redistribute(buf.device_mesh, buf.placements)
+        buf.copy_(t)
 
 
-def lm_decode_step(params, cache, tokens, pos, cfg: ArchCfg):
+def lm_decode_step(params, cache, tokens, pos, cfg: ArchCfg, *,
+                   mesh=None):
     """tokens: (B, 1) int64; pos: the position written (an int or a 0-d or
     one-element int tensor on the params' device). Updates ``cache`` in
     place (the reference donates its cache): every layer's new k/v or MLA
     latents at ``pos``, every recurrent state replaced. Returns (logits
-    (B, 1, V) float32, cache)."""
-    x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
-    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device).reshape(1)
-    for p_r, c_r in zip(unstack(params["stage"], cfg.repeats),
-                        unstack(cache["stage"], cfg.repeats)):
-        for j, kind in enumerate(cfg.block_pattern):
-            x, new = block_decode(kind, p_r[str(j)], x, c_r[str(j)], pos,
-                                  cfg)
-            _write_back(c_r[str(j)], new)
-    for i, kind in enumerate(cfg.tail):
-        x, new = block_decode(kind, params["tail"][str(i)], x,
-                              cache["tail"][str(i)], pos, cfg)
-        _write_back(cache["tail"][str(i)], new)
-    x = _norm(cfg, x, params["final_norm"])
-    return _logits(params, x, cfg), cache
+    (B, 1, V) float32, cache). ``mesh``: as ``lm_forward``; the cache is
+    placed by ``cache_axes`` (``place_cache``)."""
+    with SH.on_mesh(mesh):
+        if mesh is not None:
+            tokens = SH.constrain(tokens, mesh, ("batch", None))
+        x = L.embed_apply(params["embed"], tokens, scale=cfg.embed_scale)
+        pos = torch.as_tensor(pos, dtype=torch.long,
+                              device=x.device).reshape(1)
+        for p_r, c_r in zip(unstack(params["stage"], cfg.repeats),
+                            unstack(cache["stage"], cfg.repeats)):
+            x = _constrain_act(x, mesh)
+            for j, kind in enumerate(cfg.block_pattern):
+                x, new = block_decode(kind, p_r[str(j)], x, c_r[str(j)],
+                                      pos, cfg, mesh)
+                _write_back(c_r[str(j)], new)
+        for i, kind in enumerate(cfg.tail):
+            x, new = block_decode(kind, params["tail"][str(i)], x,
+                                  cache["tail"][str(i)], pos, cfg, mesh)
+            _write_back(cache["tail"][str(i)], new)
+        x = _norm(cfg, x, params["final_norm"])
+        return _logits(params, x, cfg, mesh), cache
 
 
 # ---------------------------------------------------------------------------

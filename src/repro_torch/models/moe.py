@@ -8,8 +8,18 @@ expert they keep token order), each expert's first ``capacity`` pairs
 fill its row of an ``(e_local + 1, capacity, d)`` buffer and the rest are
 dropped. The extra last row is a sentinel that absorbs every dropped or
 foreign slot; it is never read. The expert products over the buffers are
-batched matmuls. One card: the reference's ``mesh``/``shard_map`` branch
-(expert parallelism) is ROADMAP §1 item 4.3.
+batched matmuls.
+
+On a mesh with a "model" axis the routed experts run expert-parallel, as
+the reference's ``shard_map`` branch: the experts are split over "model"
+(``e_local = n_routed // em`` a rank), the tokens over ("pod", "data")
+and replicated over "model"; each rank dispatches its data shard's
+tokens to its own experts (``e_start = rank * e_local``) on plain local
+tensors, and a sum over "model" (a ``Partial`` DTensor made Replicate: an
+all-reduce whose backward hands each rank the whole cotangent) combines
+them. Capacity is per data shard (``lm._apply_ffn``). On a mesh without
+"model" the routed layer runs on the whole batch on every rank, as the
+reference's global dispatch does there.
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import sharding as SH
 from .layers import PSpec, grad_cast_bf16, mlp_apply, mlp_spec
 
 __all__ = ["moe_spec", "moe_apply", "route"]
@@ -111,16 +122,67 @@ def _dispatch_compute(x2, p_router, wg, wu, wd, *, topk: int, capacity: int,
     return (y_slots * gates[:, None]).reshape(T, topk, d).sum(dim=1)
 
 
+def _expert_parallel(p, x2, mesh, **kw):
+    """The routed experts of ``x2`` (T, d), a DTensor, on ``mesh``: the
+    reference's ``shard_map`` over "model" (in_specs tokens
+    P(batch_axes, None), router P(None, None), experts P("model", None,
+    None); out_specs P(batch_axes, None)) as a region of plain tensors
+    between DTensor redistributes. The gradient placements say what each
+    rank's local gradient is: over the batch axes a part of the sum of
+    the params' gradients (its tokens); over "model" a part of the sum of
+    the tokens' and the router's (its experts)."""
+    names = mesh.mesh_dim_names
+    batch = SH.batch_axes(mesh)
+    n_routed = kw.pop("n_routed")
+    em = SH.axis_size(mesh, "model")
+    if n_routed % em:
+        raise ValueError(f"{n_routed} experts do not split over a "
+                         f"'model' axis of {em}")
+    e_local = n_routed // em
+    tok = (batch or None, None)
+    experts = ("model", None, None)
+    xl = SH.local_region(x2, tok, SH.placements(mesh, tok, ("model",)))
+    router = SH.local_region(p["router"], (None, None),
+                             SH.placements(mesh, (None, None), names))
+    ws = [SH.local_region(p[k], experts, SH.placements(mesh, experts, batch))
+          for k in ("we_gate", "we_up", "we_down")]
+    me = mesh.get_local_rank("model")
+    y = _dispatch_compute(xl, router, *ws, n_routed=n_routed,
+                          e_start=me * e_local, e_local=e_local, **kw)
+    y = SH.from_region(y, mesh, SH.placements(mesh, tok, ("model",)),
+                       x2.shape)
+    return y.redistribute(mesh, SH.placements(mesh, tok))   # the psum
+
+
+def _replicated(p, x2, mesh, **kw):
+    """The routed experts of ``x2`` on a mesh without "model": the whole
+    batch on every rank (each computes the same, so every gradient is
+    the whole one)."""
+    rep = SH.placements(mesh, (None,) * 2)
+    xl = x2.redistribute(mesh, rep).to_local()
+    ws = [p[k].redistribute(mesh, rep).to_local()
+          for k in ("router", "we_gate", "we_up", "we_down")]
+    y = _dispatch_compute(xl, *ws, e_start=0, e_local=kw["n_routed"], **kw)
+    return SH.from_region(y, mesh, rep, x2.shape)
+
+
 def moe_apply(p, x, *, topk: int, n_routed: int, capacity: int,
-              renormalize: bool = True):
+              renormalize: bool = True, mesh=None):
     """x: (B, S, d) -> (B, S, d): the routed experts' output plus the
-    shared experts'."""
+    shared experts'. ``mesh``: a ``DeviceMesh`` (``x`` and ``p`` are
+    DTensors on it)."""
     B, S, d = x.shape
     x2 = grad_cast_bf16(x.reshape(B * S, d))
-    y = _dispatch_compute(
-        x2, p["router"], p["we_gate"], p["we_up"], p["we_down"],
-        topk=topk, capacity=capacity, n_routed=n_routed, e_start=0,
-        e_local=n_routed, renormalize=renormalize)
+    kw = dict(topk=topk, capacity=capacity, n_routed=n_routed,
+              renormalize=renormalize)
+    if mesh is not None and SH.model_axis(mesh):
+        y = _expert_parallel(p, x2, mesh, **kw)
+    elif mesh is not None:
+        y = _replicated(p, x2, mesh, **kw)
+    else:
+        y = _dispatch_compute(
+            x2, p["router"], p["we_gate"], p["we_up"], p["we_down"],
+            e_start=0, e_local=n_routed, **kw)
     y = grad_cast_bf16(y.reshape(B, S, d))
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, act="silu")

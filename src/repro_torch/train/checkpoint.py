@@ -20,8 +20,19 @@ each package restores the other's checkpoints:
 
 The process index and count come from ``torch.distributed`` when it is
 initialised, else 0 and 1. Restore places every leaf on the ``device``
-asked for (where the reference takes shardings): the card unless the CPU
-is asked for.
+asked for (the card unless the CPU is asked for) or, with ``shardings``
+(a tree of ``sharding.NamedSharding`` matching the template; None
+leaves stay plain), onto a mesh: a checkpoint restores onto any mesh or
+none, whatever mesh wrote it.
+
+A tree of DTensors (a sharded run) is saved whole: each leaf is gathered
+(every process takes part, in the tree's order), and process ``i``
+writes the leaves ``i, i + P, ...`` of the tree's order into its own
+``shard_{i:05d}.npz``; the reference's restore and this one read every
+process's file. Process 0 commits once every file is written
+(barriers); on more than one process that save is synchronous, also
+from ``save_async``, since its barriers must not run beside the next
+step's collectives.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import sharding as SH
 from ..core.engine import resolve_device
 from .optimizer import AdamWState
 
@@ -79,13 +91,24 @@ def _encode(leaf) -> Tuple[np.ndarray, Optional[str]]:
     return np.asarray(leaf), None
 
 
-def _flatten(tree) -> Dict[str, np.ndarray]:
-    """The host copy of ``tree``: tagged key -> numpy array."""
-    flat = {}
-    for key, leaf in _paths(tree):
-        arr, tag = _encode(leaf)
-        flat[key + (_DT + tag if tag else "")] = arr
-    return flat
+def _sharded(tree) -> bool:
+    return any(SH.is_dtensor(leaf) for _, leaf in _paths(tree))
+
+
+def _flatten(tree) -> Tuple[Dict[str, np.ndarray], list]:
+    """The host copy of ``tree`` this process writes (tagged key -> numpy
+    array; of a sharded tree, the leaves it owns) and every tagged key of
+    the tree."""
+    flat, keys = {}, []
+    proc, count = _process() if _sharded(tree) else (0, 1)
+    for i, (key, leaf) in enumerate(_paths(tree)):
+        if SH.is_dtensor(leaf):
+            leaf = leaf.full_tensor()       # every process takes part
+        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+        keys.append(key + (_DT + _BF16 if bf16 else ""))
+        if i % count == proc:
+            flat[keys[-1]] = _encode(leaf)[0]
+    return flat, keys
 
 
 def _decode(arr: np.ndarray, tag: Optional[str]) -> torch.Tensor:
@@ -97,19 +120,32 @@ def _decode(arr: np.ndarray, tag: Optional[str]) -> torch.Tensor:
     return torch.from_numpy(bits).view(torch.bfloat16)
 
 
+def _barrier(sharded: bool) -> None:
+    if sharded and _process()[1] > 1:
+        torch.distributed.barrier()
+
+
 def _write(directory: str, step: int, flat: Dict[str, np.ndarray],
-           extra: Optional[dict]) -> str:
-    os.makedirs(directory, exist_ok=True)
+           extra: Optional[dict], keys=None, sharded: bool = False) -> str:
+    """Write and commit one checkpoint. ``sharded``: every process writes
+    its part of one tree (``keys`` all of them) and process 0 commits."""
+    proc, count = _process()
     name = f"step_{step:08d}"
     tmp = os.path.join(directory, name + ".tmp")
     final = os.path.join(directory, name)
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    proc, count = _process()
+    if proc == 0 or not sharded:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    _barrier(sharded)
     np.savez(os.path.join(tmp, f"shard_{proc:05d}.npz"), **flat)
+    _barrier(sharded)
+    if sharded and proc != 0:
+        _barrier(sharded)
+        return final
     meta = {"step": step, "num_processes": count,
-            "keys": sorted(flat), **(extra or {})}
+            "keys": sorted(keys if sharded else flat), **(extra or {})}
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
         f.flush()
@@ -123,23 +159,29 @@ def _write(directory: str, step: int, flat: Dict[str, np.ndarray],
         os.fsync(f.fileno())
     os.rename(os.path.join(directory, "LATEST.tmp"),
               os.path.join(directory, "LATEST"))
+    _barrier(sharded)
     return final
 
 
 def save(directory: str, step: int, tree, *, extra: Optional[dict] = None):
-    """Write ``tree`` (tensors on any device, or numpy arrays) as step
-    ``step`` of ``directory``; returns the committed directory."""
-    return _write(directory, step, _flatten(tree), extra)
+    """Write ``tree`` (tensors on any device, DTensors, or numpy arrays)
+    as step ``step`` of ``directory``; returns the committed directory.
+    A tree of DTensors is saved by every process together."""
+    flat, keys = _flatten(tree)
+    return _write(directory, step, flat, extra, keys, _sharded(tree))
 
 
 def _unflatten_into(template, decoded: Dict[str, torch.Tensor], device,
-                    prefix=()):
+                    shardings=None, prefix=()):
     if isinstance(template, dict):
-        return {k: _unflatten_into(template[k], decoded, device,
-                                   prefix + (str(k),)) for k in template}
+        return {k: _unflatten_into(
+            template[k], decoded, device,
+            None if shardings is None else shardings[k],
+            prefix + (str(k),)) for k in template}
     if isinstance(template, AdamWState):
         return AdamWState(*(_unflatten_into(
             getattr(template, name), decoded, device,
+            None if shardings is None else getattr(shardings, name),
             prefix + ("." + name,)) for name in template._fields))
     key = _SEP.join(prefix)
     if key not in decoded:
@@ -149,15 +191,20 @@ def _unflatten_into(template, decoded: Dict[str, torch.Tensor], device,
         raise ValueError(f"checkpoint leaf {key!r} has shape "
                          f"{tuple(t.shape)}, the template "
                          f"{tuple(template.shape)}")
+    if shardings is not None:
+        return shardings.place(t)
     return t.to(device)
 
 
-def restore(path: str, template, *, device=None) -> Tuple[Any, dict]:
+def restore(path: str, template, *, device=None,
+            shardings=None) -> Tuple[Any, dict]:
     """(the tree shaped as ``template``, its leaves read from the
     checkpoint at ``path`` onto ``device`` (the card unless "cpu" is
     asked for); the checkpoint's meta).
     ``template`` gives keys and shapes only (``meta`` tensors will do);
-    each leaf keeps the dtype it was saved in."""
+    each leaf keeps the dtype it was saved in. ``shardings``: a tree
+    matching ``template`` of ``sharding.NamedSharding`` (or None) leaves;
+    each leaf is re-cut onto its mesh (every process reads every file)."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     decoded: Dict[str, torch.Tensor] = {}
@@ -167,10 +214,15 @@ def restore(path: str, template, *, device=None) -> Tuple[Any, dict]:
                 for k in z.files:
                     base, _, tag = k.partition(_DT)
                     decoded[base] = _decode(z[k], tag or None)
-    return _unflatten_into(template, decoded, resolve_device(device)), meta
+    if device is None and shardings is not None:
+        device = next(sh.mesh.device_type for _, sh in _paths(shardings)
+                      if sh is not None)
+    return _unflatten_into(template, decoded, resolve_device(device),
+                           shardings), meta
 
 
-def restore_latest(directory: str, template, *, device=None):
+def restore_latest(directory: str, template, *, device=None,
+                   shardings=None):
     """Walk back past incomplete checkpoints. Returns (tree, meta) or
     (None, None) if nothing restorable."""
     if not os.path.isdir(directory):
@@ -191,7 +243,8 @@ def restore_latest(directory: str, template, *, device=None):
         if not os.path.exists(os.path.join(path, "meta.json")):
             continue  # incomplete — crashed mid-write
         try:
-            return restore(path, template, device=device)
+            return restore(path, template, device=device,
+                           shardings=shardings)
         except (OSError, EOFError, ValueError, KeyError,
                 zipfile.BadZipFile):
             continue  # unreadable or not this tree's: try an older one
@@ -207,13 +260,18 @@ class Checkpointer:
         self._thread: Optional[threading.Thread] = None
 
     def save_async(self, step: int, tree, *, extra: Optional[dict] = None):
-        flat = _flatten(tree)  # synchronous copy to the host
+        flat, keys = _flatten(tree)  # synchronous copy to the host
+        sharded = _sharded(tree)
         self.wait()
 
         def work():
-            _write(self.directory, step, flat, extra)
-            self._gc()
+            _write(self.directory, step, flat, extra, keys, sharded)
+            if _process()[0] == 0 or not sharded:
+                self._gc()
 
+        if sharded and _process()[1] > 1:
+            work()          # barriers: not beside the next step's work
+            return
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 

@@ -8,7 +8,9 @@ block-scaled gradients instead of float32/bf16 ones, 4x/2x fewer wire
 bytes.
 
 ``allreduce_int8(x, mesh, generator)`` runs over the port's mesh
-(``core/mesh.py``): per-block absmax scales (float32, one per 256
+(``core/mesh.py``), or over one axis of a ``DeviceMesh`` (``axis=``, the
+reference's ``axis``, e.g. "pod": that axis's process group as a
+``ProcessGroupMesh``): per-block absmax scales (float32, one per 256
 values) and the int8 payload are all-gathered, dequantized and summed.
 Stochastic rounding from an explicit ``torch.Generator`` keeps the
 quantizer unbiased (E[q] = x), which is what makes SGD tolerate it.
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["quantize_int8", "dequantize_int8", "allreduce_int8",
-           "wire_bytes"]
+           "axis_mesh", "wire_bytes"]
 
 BLOCK = 256
 
@@ -53,13 +55,25 @@ def dequantize_int8(q, scale, n, shape, dtype):
     return x.reshape(shape).to(dtype)
 
 
-def allreduce_int8(x, mesh, generator: torch.Generator):
-    """Unbiased int8 all-reduce over ``mesh``'s shards. ``x``: (S, ...),
+def axis_mesh(mesh, axis: str):
+    """The ranks along ``axis`` of a ``DeviceMesh`` that hold this rank's
+    coordinates on the other axes, as a ``ProcessGroupMesh`` (one shard
+    a rank)."""
+    from ..core.mesh import ProcessGroupMesh
+    return ProcessGroupMesh(group=mesh.get_group(axis),
+                            device=mesh.device_type)
+
+
+def allreduce_int8(x, mesh, generator: torch.Generator, axis=None):
+    """Unbiased int8 all-reduce over ``mesh``'s shards, or with ``axis``
+    over that axis of a ``DeviceMesh`` (``axis_mesh``). ``x``: (S, ...),
     the value of each shard this process holds (``mesh.shards``; S = 1
     on a ``ProcessGroupMesh``), each quantized on its own with draws from
     ``generator``. Returns (S, ...): every shard gets the sum over all P
     shards of the dequantized values, in ``x``'s dtype. Wire bytes per
     element: 1 (payload) + 4/BLOCK (scales) vs 4 for float32."""
+    if axis is not None:
+        mesh = axis_mesh(mesh, axis)
     qs, ss = [], []
     for shard in x:
         q, scale, n = quantize_int8(shard, generator)

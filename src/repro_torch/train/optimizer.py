@@ -12,6 +12,13 @@ moments in place, leaf by leaf and chunk by chunk under ``no_grad`` (the
 counterpart of the reference's ``donate_argnums``), so a step holds a few
 float32 temporaries of one chunk at a time, never a second copy of the
 params or the state.
+
+On a mesh (params as DTensors) the moments take their parameter's
+placements, so each rank holds only its shard's ``m`` and ``v`` (the
+reference's "ZeRO-3-equivalent"); the chunked update runs on each
+rank's local shards, and the global norm sums each leaf's local squares
+over the mesh axes that shard it, leaf after leaf in the tree's order
+(on a mesh of one rank, the plain path's numbers bit for bit).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .. import sharding as SH
 from ..models.layers import leaves, tree_map
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
@@ -67,6 +75,8 @@ def adamw_init(params) -> AdamWState:
     """float32 zero moments shaped as ``params``, a 0-d int32 count, all
     on the params' device."""
     def zeros(p):
+        if SH.is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     device = leaves(params)[0].device
     return AdamWState(m=tree_map(zeros, params), v=tree_map(zeros, params),
@@ -75,8 +85,24 @@ def adamw_init(params) -> AdamWState:
 
 def _chunks(t: torch.Tensor):
     """Views of consecutive pieces of a contiguous tensor's elements (every
-    gradient, moment and param here is contiguous)."""
+    gradient, moment and param here is contiguous); of a DTensor's local
+    shard."""
+    if SH.is_dtensor(t):
+        t = t.to_local()
     return t.view(-1).split(CHUNK)
+
+
+def _square_sum(g) -> torch.Tensor:
+    """The float32 sum of squares of ``g``'s elements: of a DTensor's
+    whole value, its local sum summed over the mesh axes that shard it."""
+    sq = sum(torch.sum(torch.square(c.float())) for c in _chunks(g))
+    if not SH.is_dtensor(g):
+        return sq
+    mesh = g.device_mesh
+    sharded = [n for n, p in zip(mesh.mesh_dim_names, g.placements)
+               if p.is_shard()]
+    return SH.from_region(sq, mesh, SH.placements(mesh, (), sharded),
+                          ()).full_tensor()
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -85,8 +111,7 @@ def clip_by_global_norm(grads, max_norm: float):
     norm before clipping)."""
     flat = leaves(grads)
     with torch.no_grad():
-        sq = sum(sum(torch.sum(torch.square(c.float())) for c in _chunks(g))
-                 for g in flat)
+        sq = sum(_square_sum(g) for g in flat)
         norm = torch.sqrt(sq)
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12),
                             max=1.0)

@@ -789,3 +789,53 @@ def test_cuda_checkpoint_round_trip(tmp_path):
             assert a.device.type == dev and a.dtype == b.dtype
             assert torch.equal(a.cpu().reshape(-1).view(torch.uint8),
                                b.cpu().reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+def test_cuda_world_one_mesh_matches_no_mesh(arch):
+    """A one-rank NCCL process group and a (1, 1) ("data", "model")
+    DeviceMesh on the card: the DTensor path (params placed by the rules,
+    the MoE layer expert-parallel) serves the same logits and greedy
+    tokens as ``mesh=None``, and trains the same step."""
+    _need_card()
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import sharding as SH
+    from repro_torch.train import loop as TLOOP
+    from repro_torch.train import optimizer as TOPT
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = LMC.get(arch, reduced=True)
+        spec = LMM.lm_spec(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        plain = LML.tree_map(lambda t: t.float(),
+                             LML.init_params(spec, generator=gen))
+        placed = SH.place_tree(mesh, LML.tree_map(torch.clone, plain),
+                               SH.param_sharding_rules(
+                                   mesh, plain, LML.axes_tree(spec)))
+        tokens = np.random.default_rng(1).integers(1, cfg.vocab, (2, 12))
+        with torch.no_grad():
+            want = LMM.lm_forward(plain, torch.as_tensor(tokens).cuda(), cfg)
+            got = LMM.lm_forward(placed, tokens, cfg, mesh=mesh)
+        assert SH.is_dtensor(got) and got.device.type == "cuda"
+        torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(
+            LMS.greedy_generate(cfg, placed, tokens, num_new=4, mesh=mesh),
+            LMS.greedy_generate(cfg, plain, tokens, num_new=4))
+        oc = TOPT.AdamWConfig()
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        _, _, m1 = TLOOP.make_train_step(cfg, oc)(
+            plain, TOPT.adamw_init(plain), batch, 1)
+        _, _, m2 = TLOOP.make_train_step(cfg, oc, mesh)(
+            placed, TOPT.adamw_init(placed), batch, 1)
+        torch.testing.assert_close(m2["loss"], m1["loss"], rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(m2["grad_norm"], m1["grad_norm"],
+                                   rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()

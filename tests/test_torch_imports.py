@@ -73,6 +73,19 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
+def test_sharding_modules_are_guarded(monkeypatch):
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "sharding.py", port / "launch" / "mesh.py"} <= set(
+        _port_files())
+    # the meshes of the card refuse without one
+    from repro_torch.launch import mesh as LMESH
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMESH.make_production_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMESH.make_serving_mesh(2)
+
+
 def test_guard_catches_forbidden_imports():
     src = "import jax.numpy as jnp\nfrom repro.core import graph\n" \
           "from repro_torch import Engine\nfrom . import ops\n"

@@ -415,8 +415,12 @@ def test_launcher_trains_reduced_on_the_cpu(tmp_path):
 
 
 def test_launcher_refuses_the_mesh_options(capsys):
-    for flag in ("--production-mesh", "--multi-pod"):
+    # a world of one process: the production meshes' own error, naming
+    # the ranks they need
+    for flag, ranks in (("--production-mesh", 256), ("--multi-pod", 512)):
         with pytest.raises(SystemExit) as e:
             TLAUNCH.main(["--arch", "qwen3-4b", "--device", "cpu", flag])
         assert e.value.code == 2
-        assert "4.3" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert f"needs {ranks} ranks" in err and "has 1" in err
+        assert not torch.distributed.is_initialized()

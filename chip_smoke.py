@@ -122,6 +122,12 @@ Phases, in order; any failure exits non-zero:
               256 shards, WCC) for the five exchanges on the meta device:
               argument and created bytes per shard, collective bytes,
               words, teps_bound; the card's peak allocation must not move.
+     lm_dryrun: repro_torch.launch.dryrun's LM cells on the (16, 16)
+              mesh (a fake 256-rank group, meta tensors): qwen3-4b
+              train_4k, deepseek-moe-16b and xlstm-350m decode_32k, each
+              through the CLI in a process that sees no card; each cell's
+              compute, memory and collective terms, bound, peak estimate
+              and fit; the card's peak allocation must not move.
      lm_serve: the LM substrate's serving path (repro_torch.serve over
               repro_torch.models, no hand-written kernel). (a) Every
               config, reduced, on the card and on the CPU from the same
@@ -147,7 +153,10 @@ Phases, in order; any failure exits non-zero:
               bound at 989 TFLOP/s (bf16 dense, data sheet), decode
               ms/step (median of 64, CUDA events) and tokens/s against
               the bytes bound (weights + the whole KV cache the step
-              reads) at the platform phase's stream rate, peak memory.
+              reads) at the platform phase's stream rate, peak memory;
+              the ported roofline() of the prefill and of a decode step
+              (repro_torch.launch.roofline at the data sheet's rates and
+              at the measured stream rate) beside the measured seconds.
               (c) One qwen3-4b prefill and decode step under
               torch.profiler. (d) deepseek-moe-16b at full width and
               depth (28 layers, 64 routed experts top-6 + 2 shared,
@@ -179,7 +188,8 @@ Phases, in order; any failure exits non-zero:
               loss and grad norm finite, the last loss at most
               TRAIN_LOSS_RATIO of the first, the params moved; median step
               time, tokens/s, the share of the FLOP bound (4 x a
-              full-logits prefill at 989 TFLOP/s), peak memory; one step
+              full-logits prefill at 989 TFLOP/s) and the ported
+              roofline() of the step beside it, peak memory; one step
               under torch.profiler; then microbatch=2 against the unsplit
               step from the same state (loss, grad norm). (c) At 2 of the
               36 layers (the disk's free space read first): the state
@@ -203,7 +213,11 @@ Phases, in order; any failure exits non-zero:
               greedy tokens) against mesh=None's, held to LM_FAMILY_BF16,
               the mesh's argmax equal to mesh=None's greedy token at every
               position; decode ms/step of each, one decode step of each
-              profiled. (c) The graph engine on launch/mesh.py's
+              profiled. (b') deepseek-v2-236b (MLA, 4 of its 60 layers)
+              and seamless-m4t-medium (encode, the cross cache, decode)
+              served on the mesh and with mesh=None from the same params,
+              the mesh's steps fed mesh=None's greedy tokens: every logit
+              bit-equal. (c) The graph engine on launch/mesh.py's
               graph mesh (a ProcessGroupMesh over the NCCL group, one
               shard): one BFS per exchange through ShardEngine, equal to
               Engine's exactly, K2's count from 0 before and read after
@@ -341,6 +355,15 @@ TRAIN_MB, TRAIN_MB_LOSS_ATOL, TRAIN_MB_GNORM_RTOL = 2, 0.05, 0.01
 TRAIN_CKPT_REPEATS = 2
 # the lm_shard phase: a world-1 NCCL group and a (1, 1) mesh
 SHARD_MESH = ((1, 1), ("data", "model"))
+# the mixers served on it beside deepseek-moe-16b, each held bit-equal to
+# mesh=None: (arch, repeats served or None for all)
+SHARD_FAMILIES = (("deepseek-v2-236b", 4), ("seamless-m4t-medium", None))
+# the lm_dryrun phase: cells of repro_torch.launch.dryrun on the (16, 16)
+# mesh (a fake 256-rank group, meta tensors), each through the CLI in a
+# process of its own that sees no card
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("deepseek-moe-16b", "decode_32k"),
+                ("xlstm-350m", "decode_32k"))
+DRYRUN_TIMEOUT = 300         # seconds a cell's process may take
 SHARD_TRAIN_STEPS = 3
 SHARD_GRAPH_SCALE = 16       # the graph mesh's R-MAT (one shard)
 SHARD_PROBE_RANKS = 4
@@ -1782,6 +1805,53 @@ def phase_dryrun(torch) -> None:
                              f"{peak} against {before}")
 
 
+def phase_lm_dryrun(torch) -> None:
+    """repro_torch.launch.dryrun's LM cells (DRYRUN_CELLS) on the (16, 16)
+    mesh, each through the CLI in a process that sees no card
+    (CUDA_VISIBLE_DEVICES empty: the cells run on meta tensors); each
+    cell's three terms, bound and fit logged; the card's peak allocation
+    must not move across the phase."""
+    import os
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = ROOT / "build" / "lm_dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+             "--arch", arch, "--shape", shape, "--mesh", "single",
+             "--out", str(out)], capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT, env=env, cwd=str(ROOT))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"dry-run cell {arch} {shape} exited "
+                                 f"{proc.returncode}: {proc.stdout[-800:]}"
+                                 f"{proc.stderr[-1500:]}")
+        cell = json.loads((out / f"{arch}__{shape}__pod_16x16.json")
+                          .read_text())
+        rf, mem = cell["roofline"], cell["memory"]
+        log("lm_dryrun", arch=arch, shape=shape, mesh=cell["mesh"],
+            status=cell["status"], t_compute_s=rf["t_compute_s"],
+            t_memory_s=rf["t_memory_s"],
+            t_collective_s=rf["t_collective_s"], bound_by=rf["bound_by"],
+            roofline_step_s=rf["roofline_step_s"],
+            mfu_bound=rf["mfu_bound"], fits_hbm=cell["fits_hbm"],
+            argument_bytes=mem["argument_bytes"],
+            peak_estimate_bytes=mem["peak_estimate_bytes"],
+            wire_bytes=cell["collectives"]["total_wire_bytes"],
+            host_s=cell["host_s"], wall_s=round(wall, 3))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log("lm_dryrun", memory_allocated_before=before,
+        max_memory_allocated=peak)
+    if peak != before:
+        raise AssertionError(f"the LM dry-run allocated on the card: peak "
+                             f"{peak} against {before}")
+
+
 def lm_diff(tag: str, got, want, **fields) -> dict:
     """Log how far float32 logits ``got`` lie from ``want`` (same shape,
     any devices): max and mean |diff|, the share outside
@@ -2073,6 +2143,32 @@ def lm_flops_prefill(cfg, params, batch: int, seq: int,
             + 2 * rows * cfg.d_model * cfg.vocab_padded)
 
 
+def log_roofline(phase: str, cfg, kind: str, flops: float, measured_s: float,
+                 tokens: int, cache_bytes: float = 0.0, **fields) -> None:
+    """The ported roofline (repro_torch.launch.roofline) of one card's
+    step beside its measured seconds: ``flops`` this run's shapes need,
+    the analytic fused HBM bytes, no collective (one card); at the data
+    sheet's rates and at the measured stream rate."""
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dryrun import active_param_count
+    from repro_torch.models import lm as LM
+    active = active_param_count(cfg)
+    ana = RL.analytic_hbm_bytes(
+        n_params=LM.num_params(cfg), n_params_active=active, tokens=tokens,
+        d_model=cfg.d_model, n_layers=cfg.n_layers, vocab=cfg.vocab_padded,
+        n_dev=1, dp=1, tp=1, kind=kind, cache_bytes_per_dev=cache_bytes)
+    for hw in (RL.H100, RL.H100_STREAM):
+        rf = RL.roofline({"flops": flops}, {}, n_devices=1, tokens=tokens,
+                         n_params_active=active, kind=kind,
+                         analytic_bytes=ana, hw=hw)
+        log(phase, arch=cfg.name, roofline=kind, hardware=repr(hw.name),
+            t_compute_s=rf["t_compute_s"], t_memory_s=rf["t_memory_s"],
+            bound_by=rf["bound_by"], roofline_step_s=rf["roofline_step_s"],
+            measured_s=measured_s,
+            roofline_share=rf["roofline_step_s"] / measured_s,
+            mfu_bound=rf["mfu_bound"], **fields)
+
+
 def phase_lm_full(torch, seed: int, rate: float) -> None:
     """(b) qwen3-4b at full width and depth, and (c) its profile."""
     from repro_torch import configs
@@ -2210,6 +2306,13 @@ def phase_lm_full(torch, seed: int, rate: float) -> None:
     log("lm_serve", arch=cfg.name, memory_allocated_before=before,
         max_memory_allocated=peak, serving_peak_bytes=peak - before,
         weight_bytes=weight_bytes, cache_bytes=kv_bytes)
+    log_roofline("lm_serve", cfg, "prefill", flops, prefill_s, B * T)
+    # a decode step: the prefill of one token, and its attention over the
+    # T positions before it
+    step_flops = (lm_flops_prefill(cfg, params, B, 1) + 4 * B * cfg.n_heads
+                  * cfg.head_dim * T * cfg.n_layers)
+    log_roofline("lm_serve", cfg, "decode", step_flops, med / 1e3, B,
+                 cache_bytes=kv_bytes)
 
     # (c) one prefill and one decode step (rewriting the last position)
     # under the profiler
@@ -2736,6 +2839,7 @@ def phase_train_full(torch, seed: int) -> None:
         flop_rate="989e12 bf16 dense (H100 SXM data sheet)",
         loss_first=losses[0], loss_last=losses[-1],
         loss_ratio=losses[-1] / losses[0])
+    log_roofline("train", cfg, "train", hw_flops, med, B * S)
     log("train", arch=cfg.name, memory_allocated_before=before,
         max_memory_allocated=peak, training_peak_bytes=peak - before,
         state_bytes=param_bytes + moment_bytes,
@@ -2900,8 +3004,10 @@ def phase_lm_shard(torch, seed: int, rate: float) -> int:
         log("lm_shard", backend=dist.get_backend(),
             world=dist.get_world_size(), mesh=repr(SHARD_MESH))
         k2 = None
-        for name, run in (("train", shard_train), ("serve", shard_serve),
-                          ("graph", shard_graph)):
+        parts = [("train", shard_train), ("serve", shard_serve)]
+        parts += [(arch, lambda t, m, sd, r, a=arch, n=n: shard_serve_exact(
+            t, m, sd, a, n)) for arch, n in SHARD_FAMILIES]
+        for name, run in parts + [("graph", shard_graph)]:
             t0 = time.perf_counter()
             got = run(torch, mesh, seed, rate)
             if name == "graph":
@@ -3056,6 +3162,106 @@ def shard_serve(torch, mesh, seed: int, rate: float) -> None:
     if same != 1.0:
         raise AssertionError(f"the mesh's greedy tokens differ from "
                              f"mesh=None's at {1 - same:.2%} of positions")
+    del params, placed, out, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shard_serve_exact(torch, mesh, seed: int, arch: str,
+                      repeats=None) -> None:
+    """(b') ``arch`` (its first ``repeats`` repeats where given) served
+    on the mesh and with mesh=None from the same bf16 params: prefill and
+    LM_NEW decode steps (the enc-dec: encode, the cross cache, decode
+    from LM_START_TOKEN), the mesh's steps fed mesh=None's greedy tokens.
+    Every logit must be bit-equal, so the greedy tokens too."""
+    from repro_torch import configs
+    from repro_torch import sharding as SH
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import engine as S
+    cfg = configs.get(arch)
+    if repeats is not None:
+        cfg = dataclasses.replace(cfg, repeats=repeats)
+    encdec = cfg.family == "encdec"
+    spec = ED.encdec_spec(cfg, cfg.n_enc, cfg.n_dec) if encdec \
+        else LM.lm_spec(cfg)
+    B, T, new, max_len = LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN
+    params = L.init_params(spec, generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    placed = SH.place_tree(mesh, params, shard_specs(SH, L, mesh, params,
+                                                     spec))
+    if encdec:
+        frames = torch.from_numpy(np.random.default_rng(seed)
+                                  .standard_normal((B, T, cfg.d_model))
+                                  .astype(np.float32)).to("cuda",
+                                                          torch.bfloat16)
+    else:
+        tokens, _ = lm_prompt(cfg, B, T, seed)
+    out = {}
+    for name, on, p in (("none", None, params), ("mesh", mesh, placed)):
+        toks = out["none"]["tokens"] if name == "mesh" else None
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if encdec:
+                enc = ED.encode(p, frames, cfg, on)
+                args = (cfg, cfg.n_dec, B, new, T)
+                cache = ED.init_encdec_cache(*args, device="cuda")
+                if on is not None:
+                    cache = SH.place_tree(on, cache, SH.param_sharding_rules(
+                        on, cache, ED.encdec_cache_axes(*args)))
+                cache = ED.fill_cross_cache(p, enc, cache, cfg)
+                tok = torch.full((B, 1), LM_START_TOKEN, dtype=torch.long,
+                                 device="cuda")
+                steps, fed = [], [tok]
+                for i in range(new):
+                    lg, cache = ED.encdec_decode_step(
+                        p, cache, fed[i], torch.tensor([i], device="cuda"),
+                        cfg, on)
+                    steps.append(lg[:, -1])
+                    if toks is None:
+                        fed.append(lg[:, -1].argmax(-1, keepdim=True))
+                    else:
+                        fed.append(toks[i + 1])
+            else:
+                prefill, decode, init_cache = S.make_serve_fns(
+                    cfg, on, batch=B, max_len=max_len, device="cuda")
+                logits, pcache = prefill(p, tokens)
+                cache = S.place_prefill_cache(cfg, pcache, init_cache(), T)
+                del pcache
+                steps = [logits[:, -1]]
+                fed = [S.greedy_token(logits)] if toks is None else toks
+                for i in range(new):
+                    lg, cache = decode(p, cache, fed[i],
+                                       torch.tensor([T + i], device="cuda"))
+                    steps.append(lg[:, -1])
+                    if toks is None:
+                        fed.append(S.greedy_token(lg))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = [t.full_tensor() if SH.is_dtensor(t) else t for t in steps]
+        out[name] = {"tokens": toks if toks is not None else fed,
+                     "logits": torch.stack(steps, 1)}
+        log("lm_shard", arch=arch, serve_mesh=name,
+            layers=(f"{cfg.n_enc}+{cfg.n_dec}" if encdec
+                    else cfg.n_layers), batch=B, prompt=T, new_tokens=new,
+            wall_s=round(wall, 6),
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        del cache
+        gc.collect()
+    want, got = out["none"]["logits"], out["mesh"]["logits"]
+    fed = torch.cat(out["none"]["tokens"], 1)
+    chosen = fed[:, 1:] if encdec else fed
+    same = float((got.argmax(-1) == chosen[:, :got.shape[1]])
+                 .float().mean())
+    equal = bool(torch.equal(got, want))
+    log("lm_shard", arch=arch, check="serve_mesh_vs_none_exact",
+        logits_equal=equal, greedy_equal_share=same,
+        max_abs_diff=float((got.float() - want.float()).abs().max()),
+        positions=got.shape[1])
+    if not equal or same != 1.0:
+        raise AssertionError(f"{arch}: the mesh's logits are not mesh="
+                             f"None's (greedy equal at {same:.2%})")
     del params, placed, out, want, got
     gc.collect()
     torch.cuda.empty_cache()
@@ -3316,6 +3522,7 @@ def main() -> int:
     records = drive(torch, torch.device("cuda"), rate, full, seed)
     if full:
         phase_dryrun(torch)
+        phase_lm_dryrun(torch)
         phase_lm_serve(torch, seed, rate)
         phase_train(torch, seed)
         shard_k2 = phase_lm_shard(torch, seed, rate)

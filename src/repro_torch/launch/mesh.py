@@ -15,14 +15,37 @@ the ``LocalMesh`` that stacks every shard on one device.
 """
 from __future__ import annotations
 
+import contextlib
+
 __all__ = ["PRODUCTION", "make_production_mesh", "make_graph_mesh",
-           "make_local_mesh", "make_serving_mesh"]
+           "make_local_mesh", "make_serving_mesh", "dryrun_world"]
 
 # (shape, axis names) of the production meshes
 PRODUCTION = {
     False: ((16, 16), ("data", "model")),
     True: ((2, 16, 16), ("pod", "data", "model")),
 }
+
+
+@contextlib.contextmanager
+def dryrun_world(n: int):
+    """Within: a default process group of ``n`` ranks in this one
+    process, over torch's ``fake`` backend (its collectives move nothing
+    and return at once), this process its rank 0; destroyed on exit. The
+    dry-run's world: ``make_production_mesh(device="cpu")`` builds over
+    it, and DTensors over ``meta`` blocks run a step of the production
+    mesh's rank 0 without a card. The group is process-wide: raises if
+    one is already initialised."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _world(need: int, what: str) -> None:

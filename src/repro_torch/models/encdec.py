@@ -70,16 +70,16 @@ def encdec_spec(cfg: ArchCfg, n_enc: int, n_dec: int) -> Dict[str, Any]:
 def _cross_full(p, x, enc_kv, cfg):
     """Full-sequence cross attention (no rope, no mask). enc_kv: (k, v),
     each (B, T, Hkv, hd)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = L.heads_einsum("bsd,dhk->bshk", x, p["wq"])
     k, v = enc_kv
     out = L.blockwise_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
                                 kv_chunk=cfg.kv_chunk)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return L.heads_einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def _cross_kv(p, enc_out):
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    k = L.heads_einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = L.heads_einsum("bsd,dhk->bshk", enc_out, p["wv"])
     return k, v
 
 
@@ -208,16 +208,16 @@ def _decode_step(params, cache, tokens, pos, cfg, mesh):
         # cross attention against the static encoder KV, in float32
         xk, xv = cache["cross_k"][i], cache["cross_v"][i]
         xn = _norm(cfg, x, p["cross_norm"])
-        q = torch.einsum("bsd,dhk->bshk", xn, p["cross"]["wq"])
+        q = L.heads_einsum("bsd,dhk->bshk", xn, p["cross"]["wq"])
         B, _, H, hd = q.shape
         Hkv = xk.shape[2]
         qg = q.reshape(B, Hkv, H // Hkv, hd)
-        s = torch.einsum("bhgk,bthk->bhgt", qg.float(), xk.float())
+        s = L.heads_einsum("bhgk,bthk->bhgt", qg.float(), xk.float())
         a = torch.softmax(s / math.sqrt(hd), dim=-1)
-        o = torch.einsum("bhgt,bthk->bhgk", a, xv.float()).to(x.dtype)
+        o = L.heads_einsum("bhgt,bthk->bhgk", a, xv.float()).to(x.dtype)
         o = o.reshape(B, 1, H, hd)
-        x = SH.settle(x + torch.einsum("bshk,hkd->bsd", o,
-                                       p["cross"]["wo"]))
+        x = SH.settle(x + L.heads_einsum("bshk,hkd->bsd", o,
+                                         p["cross"]["wo"]))
         x = SH.settle(x + L.mlp_apply(p["mlp"], _norm(cfg, x, p["ffn_norm"]),
                                       act="gelu"))
     x = _norm(cfg, x, params["final_norm"])

@@ -37,7 +37,8 @@ __all__ = [
     "PSpec", "init_params", "abstract_params", "axes_tree", "param_count",
     "tree_map", "leaves", "unflatten_like", "rmsnorm", "softcap",
     "grad_cast_bf16", "rope", "dense",
-    "masked_cache_update", "blockwise_attention", "attn_spec", "gqa_full",
+    "masked_cache_update", "blockwise_attention", "heads_einsum",
+    "attn_spec", "gqa_full",
     "gqa_decode", "mlp_spec", "mlp_apply", "embed_spec", "embed_apply",
     "logits_apply",
 ]
@@ -361,10 +362,25 @@ def attn_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
     return s
 
 
+_HEADS = {"b": "batch", "h": "heads"}
+
+
+def heads_einsum(eq: str, *operands):
+    """``torch.einsum(eq, *operands)`` for the head projections and the
+    attention products around them (``b`` the batch, ``h`` the heads). On
+    a mesh a region of plain tensors (``sharding.einsum``): the batch
+    over the batch axes and the heads over "model" where they divide,
+    every other axis whole on each rank, so heads the "model" axis does
+    not divide are computed whole on each of its ranks."""
+    if any(SH.is_dtensor(o) for o in operands):
+        return SH.einsum(eq, *operands, split=_HEADS)
+    return torch.einsum(eq, *operands)
+
+
 def _project_qkv(p, x, positions, *, rope_base, qk_norm):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = heads_einsum("bsd,dhk->bshk", x, p["wq"])
+    k = heads_einsum("bsd,dhk->bshk", x, p["wk"])
+    v = heads_einsum("bsd,dhk->bshk", x, p["wv"])
     if "bq" in p:
         q = q + p["bq"][None, None]
         k = k + p["bk"][None, None]
@@ -392,7 +408,7 @@ def gqa_full(p, x, *, rope_base: float = 10000.0, causal: bool = True,
                               logit_cap=logit_cap, q_chunk=q_chunk,
                               kv_chunk=kv_chunk,
                               skip_masked_blocks=skip_masked_blocks)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = heads_einsum("bshk,hkd->bsd", out, p["wo"])
     return out, (k, v)
 
 
@@ -412,7 +428,7 @@ def gqa_decode(p, x, cache_k, cache_v, pos, *, rope_base: float = 10000.0,
     attend = _attend_split if SH.is_dtensor(cache_k) else _attend
     out = attend(q, cache_k, cache_v, pos, window=window,
                  logit_cap=logit_cap).to(x.dtype)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = heads_einsum("bshk,hkd->bsd", out, p["wo"])
     return out, cache_k, cache_v
 
 

@@ -17,8 +17,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import (PSpec, blockwise_attention, dense, masked_cache_update,
-                     rmsnorm, rope)
+from .layers import (PSpec, blockwise_attention, dense, heads_einsum,
+                     masked_cache_update, rmsnorm, rope)
 
 __all__ = ["mla_spec", "mla_full", "mla_decode"]
 
@@ -50,7 +50,7 @@ def mla_spec(d_model: int, n_heads: int, *, q_lora: int = 1536,
 def _project(p, x, positions, *, qk_nope, qk_rope, kv_lora,
              rope_base=10000.0):
     q_lat = rmsnorm(dense(x, p["w_dq"]), p["q_norm"])
-    q = torch.einsum("bsl,lhk->bshk", q_lat, p["w_uq"])
+    q = heads_einsum("bsl,lhk->bshk", q_lat, p["w_uq"])
     q_nope, q_pe = q[..., :qk_nope], q[..., qk_nope:]
     q_pe = rope(q_pe, positions, base=rope_base)
 
@@ -73,8 +73,8 @@ def mla_full(p, x, *, qk_nope: int = 128, qk_rope: int = 64,
         p, x, positions, qk_nope=qk_nope, qk_rope=qk_rope, kv_lora=kv_lora,
         rope_base=rope_base)
     H = q_nope.shape[2]
-    k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uk"])
-    v = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uv"])
+    k_nope = heads_einsum("bsl,lhk->bshk", c_kv, p["w_uk"])
+    v = heads_einsum("bsl,lhk->bshk", c_kv, p["w_uv"])
     k = torch.cat([k_nope, k_pe.expand(B, S, H, qk_rope)], dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1)
     # v padded to the q/k width for the shared blockwise attention
@@ -83,7 +83,7 @@ def mla_full(p, x, *, qk_nope: int = 128, qk_rope: int = 64,
     out = blockwise_attention(q, k, v_in, causal=True, scale=scale,
                               q_chunk=q_chunk, kv_chunk=kv_chunk)
     out = out[..., :v_dim]
-    out = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+    out = heads_einsum("bshk,hkd->bsd", out, p["w_o"])
     return out, (c_kv, k_pe[:, :, 0, :])
 
 
@@ -103,15 +103,15 @@ def mla_decode(p, x, cache_ckv, cache_kpe, pos, *, qk_nope: int = 128,
     masked_cache_update(cache_kpe, k_pe_new[:, :, 0, :], pos, axis=1)
 
     # absorb q_nope through W_uk: (B,1,H,nope) x (lora,H,nope) -> latent q
-    q_lat = torch.einsum("bshk,lhk->bshl", q_nope, p["w_uk"])
+    q_lat = heads_einsum("bshk,lhk->bshl", q_nope, p["w_uk"])
     ckv = cache_ckv.float()
-    s = (torch.einsum("bshl,btl->bhst", q_lat.float(), ckv)
-         + torch.einsum("bshk,btk->bhst", q_pe.float(), cache_kpe.float()))
+    s = (heads_einsum("bshl,btl->bhst", q_lat.float(), ckv)
+         + heads_einsum("bshk,btk->bhst", q_pe.float(), cache_kpe.float()))
     s = s * (1.0 / math.sqrt(qk_nope + qk_rope))
     t = torch.arange(cache_ckv.shape[1], device=dev)
     s = torch.where(t <= pos, s, -math.inf)
     a = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhst,btl->bshl", a, ckv).to(x.dtype)
-    out = torch.einsum("bshl,lhk->bshk", ctx, p["w_uv"])    # un-absorb W_uv
-    out = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+    ctx = heads_einsum("bhst,btl->bshl", a, ckv).to(x.dtype)
+    out = heads_einsum("bshl,lhk->bshk", ctx, p["w_uv"])    # un-absorb W_uv
+    out = heads_einsum("bshk,hkd->bsd", out, p["w_o"])
     return out, cache_ckv, cache_kpe

@@ -20,6 +20,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import sharding as SH
 from .layers import PSpec, dense, rmsnorm
 
 __all__ = [
@@ -130,6 +131,66 @@ def _mlstm_cell(state, q, k, v, i_t, f_t):
     return (C_new, n_new, m_new), h
 
 
+def _mlstm_steps(carry, q, k, v, i_pre, f_pre):
+    """The recurrence over the S timesteps of q/k/v (B, S, H, dh) and
+    i/f (B, S, H) from ``carry`` (C, n, m): (h (B, S, H * dh) float32,
+    the last carry). The inputs are cut into timesteps by one ``unbind``
+    each, whose backward stacks the timesteps' gradients once (an index
+    per timestep would add S zero-filled copies of the whole input). On
+    a mesh (DTensor q) the loop is a region of plain tensors
+    (``_mlstm_steps_split``)."""
+    if SH.is_dtensor(q):
+        return _mlstm_steps_split(carry, q, k, v, i_pre, f_pre)
+    hs = []
+    for step in zip(*(a.unbind(1) for a in (q, k, v, i_pre, f_pre))):
+        carry, h = _mlstm_cell(carry, *step)
+        hs.append(h)
+    return torch.stack(hs, dim=1).flatten(2), carry
+
+
+def _head_region(mesh, batch: int, n_heads: int):
+    """The spec of the (batch, heads) axes of a recurrence's region:
+    the batch over the batch axes and the heads over "model", each
+    where it divides; and a function that gives a tensor's local block
+    with those two axes at ``dims`` (a plain tensor is whole on every
+    rank: a fresh state), its other axes whole."""
+    bh = SH.logical_to_spec(mesh, ("batch", "heads"), (batch, n_heads))
+
+    def spec(ndim, dims):
+        out = [None] * ndim
+        out[dims[0]], out[dims[1]] = bh
+        return tuple(out)
+
+    def local(t, dims):
+        sp = spec(t.ndim, dims)
+        if not SH.is_dtensor(t):
+            t = SH.place(mesh, t, (None,) * t.ndim)
+        return SH.local_region(t, sp, SH.placements(mesh, sp))
+    return bh, spec, local
+
+
+def _mlstm_steps_split(carry, q, k, v, i_pre, f_pre):
+    """``_mlstm_steps`` on a mesh: each rank runs the recurrence on its
+    block of the batch and of the heads (the heads over "model" where
+    they divide, else all of them on each of its ranks), since it mixes
+    no two rows and no two heads; each block's gradients are its own.
+    The heads are merged inside the region, so no DTensor view splits a
+    gradient back into heads the "model" axis does not divide."""
+    mesh = q.device_mesh
+    B, S, H, dh = q.shape
+    _, spec, local = _head_region(mesh, B, H)
+    h, (C, n, m) = _mlstm_steps(
+        tuple(local(t, (0, 1)) for t in carry),
+        *(local(t, (0, 2)) for t in (q, k, v, i_pre, f_pre)))
+
+    def whole(t, dims, shape):
+        return SH.from_region(t, mesh, SH.placements(
+            mesh, spec(len(shape), dims)), shape)
+    return (whole(h, (0, 2), (B, S, H * dh)),
+            (whole(C, (0, 1), (B, H, dh, dh)), whole(n, (0, 1), (B, H, dh)),
+             whole(m, (0, 1), (B, H))))
+
+
 def _mlstm_gates(p, xn, up):
     c = F.silu(_causal_conv(up, p["conv"]).float()).to(up.dtype)
     q = dense(c, p["w_q"])
@@ -156,12 +217,8 @@ def mlstm_scan(p, x, *, n_heads: int):
     carry = (torch.zeros((B, n_heads, dh, dh), device=dev),
              torch.zeros((B, n_heads, dh), device=dev),
              torch.full((B, n_heads), -math.inf, device=dev))
-    hs = []
-    for t in range(S):
-        carry, h = _mlstm_cell(carry, q[:, t], k[:, t], v[:, t],
-                               i_pre[:, t], f_pre[:, t])
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, di).to(x.dtype)
+    h, carry = _mlstm_steps(carry, q, k, v, i_pre, f_pre)
+    h = h.to(x.dtype)
     h = rmsnorm(h, p["out_norm"])
     h = h * F.silu(z.float()).to(x.dtype)
     Cf, nf, mf = carry
@@ -181,13 +238,13 @@ def mlstm_step(p, x_t, state, *, n_heads: int):
     c, conv_buf = _conv_step(state["conv"], up.to(state["conv"].dtype),
                              p["conv"])
     c = F.silu(c.float()).to(up.dtype)
-    q = dense(c, p["w_q"]).reshape(B, n_heads, dh)
-    k = dense(c, p["w_k"]).reshape(B, n_heads, dh)
-    v = dense(up, p["w_v"]).reshape(B, n_heads, dh)
-    i_pre = dense(xn, p["w_i"])
-    f_pre = dense(xn, p["w_f"])
-    (C, n, m), h = _mlstm_cell((state["C"], state["n"], state["m"]),
-                               q, k, v, i_pre, f_pre)
+    q = dense(c, p["w_q"]).reshape(B, 1, n_heads, dh)
+    k = dense(c, p["w_k"]).reshape(B, 1, n_heads, dh)
+    v = dense(up, p["w_v"]).reshape(B, 1, n_heads, dh)
+    i_pre = dense(xn, p["w_i"])[:, None]
+    f_pre = dense(xn, p["w_f"])[:, None]
+    h, (C, n, m) = _mlstm_steps((state["C"], state["n"], state["m"]),
+                                q, k, v, i_pre, f_pre)
     h = h.reshape(B, di).to(x_t.dtype)
     h = rmsnorm(h, p["out_norm"])
     h = h * F.silu(z.float()).to(x_t.dtype)
@@ -252,6 +309,43 @@ def _slstm_cell(p, state, gx, n_heads: int):
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
+def _slstm_steps(p, state, gx, n_heads: int):
+    """The recurrence over the S timesteps of gx (B, S, 4D) from
+    ``state``: (h (B, S, D) float32, the last state). On a mesh (DTensor
+    gx) the loop is a region of plain tensors (``_slstm_steps_split``)."""
+    if SH.is_dtensor(gx):
+        return _slstm_steps_split(p, state, gx, n_heads)
+    hs = []
+    for g in gx.unbind(1):
+        state = _slstm_cell(p, state, g, n_heads)
+        hs.append(state["h"])
+    return torch.stack(hs, dim=1), state
+
+
+def _slstm_steps_split(p, state, gx, n_heads: int):
+    """``_slstm_steps`` on a mesh: each rank runs the recurrence on its
+    block of the batch and of the heads (over "model" where they divide,
+    else all of them on each of its ranks), the gates and the state in
+    whole heads, since it mixes no two rows and no two heads. The
+    recurrent weights' local gradient is a part of the sum over the batch
+    axes that split the rows."""
+    mesh = gx.device_mesh
+    B, S, D = gx.shape[0], gx.shape[1], gx.shape[2] // 4
+    bh, spec, local = _head_region(mesh, B, n_heads)
+    rspec = (bh[1], None, None)
+    r = SH.local_region(p["r_gates"], rspec, SH.placements(
+        mesh, rspec, SH.axes_of(bh[0])))
+    split = SH.axis_size(mesh, bh[1]) if bh[1] else 1
+    h, state = _slstm_steps({"r_gates": r},
+                            {k: local(t, (0, 1)) for k, t in state.items()},
+                            local(gx, (0, 2)), n_heads // split)
+    pl = SH.placements(mesh, bh)
+    return (SH.from_region(h, mesh, SH.placements(mesh, spec(3, (0, 2))),
+                           (B, S, D)),
+            {k: SH.from_region(t, mesh, pl, (B, D))
+             for k, t in state.items()})
+
+
 def _slstm_ffn(p, x, h):
     """The block's post-FFN (ff factor 4/3, gated) around the inner
     residual ``x + h``; returns ``h`` plus its output."""
@@ -269,11 +363,8 @@ def slstm_scan(p, x, *, n_heads: int):
     xn = rmsnorm(x, p["norm"])
     gx = dense(xn, p["w_gates"])  # (B, S, 4D)
     state = slstm_init_state(B, D, device=x.device)
-    hs = []
-    for t in range(S):
-        state = _slstm_cell(p, state, gx[:, t], n_heads)
-        hs.append(state["h"])
-    h = torch.stack(hs, dim=1).to(x.dtype)
+    h, state = _slstm_steps(p, state, gx, n_heads)
+    h = h.to(x.dtype)
     h = rmsnorm(h, p["out_norm"])
     return _slstm_ffn(p, x, h), state
 
@@ -283,6 +374,6 @@ def slstm_step(p, x_t, state, *, n_heads: int):
     new state)."""
     xn = rmsnorm(x_t[:, 0], p["norm"])
     gx = dense(xn, p["w_gates"])
-    state = _slstm_cell(p, state, gx, n_heads)
-    h = rmsnorm(state["h"].to(x_t.dtype), p["out_norm"])
+    h, state = _slstm_steps(p, state, gx[:, None], n_heads)
+    h = rmsnorm(h[:, 0].to(x_t.dtype), p["out_norm"])
     return _slstm_ffn(p, x_t[:, 0], h)[:, None, :], state

@@ -41,6 +41,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import (
+    compute_local_shape_and_global_offset)
 
 __all__ = [
     "MeshShape", "mesh_axes", "batch_axes", "fsdp_axes", "model_axis",
@@ -48,7 +50,7 @@ __all__ = [
     "NamedSharding", "placements", "spec", "shard", "place", "place_tree",
     "constrain", "on_mesh", "local_offset", "paste", "write_at",
     "batch_spec", "is_dtensor", "local_region", "from_region", "settle",
-    "axes_of",
+    "axes_of", "einsum",
 ]
 
 
@@ -231,9 +233,9 @@ def spec(mesh, *axes) -> NamedSharding:
 
 
 def _full(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` on the mesh's device type."""
+    """``t`` on the mesh's device type; a ``meta`` tensor stays one."""
     dev = mesh.device_type
-    return t if t.device.type == dev else t.to(dev)
+    return t if t.device.type in (dev, "meta") else t.to(dev)
 
 
 def place(mesh, t, spec_) -> DTensor:
@@ -241,11 +243,18 @@ def place(mesh, t, spec_) -> DTensor:
     value, the same on every rank: each rank keeps a copy of its block,
     or ``t`` itself where its block is the whole tensor (every axis that
     splits it has one rank), so a mesh of one rank places for free. A
-    DTensor is redistributed."""
+    ``meta`` tensor gets an empty ``meta`` block of its rank's shape (the
+    dry-run: nothing is allocated or copied). A DTensor is
+    redistributed."""
     pl = placements(mesh, spec_)
     if isinstance(t, DTensor):
         return t.redistribute(mesh, pl)
     t = _full(torch.as_tensor(t), mesh)
+    if t.device.type == "meta":
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        return DTensor.from_local(
+            torch.empty(local, dtype=t.dtype, device="meta"), mesh, pl,
+            run_check=False, shape=t.shape, stride=t.stride())
     if all(mesh.size(i) == 1 for i, p in enumerate(pl) if p.is_shard()):
         return DTensor.from_local(t, mesh, pl, run_check=False)
     return distribute_tensor(t, mesh, pl, src_data_rank=None)
@@ -389,6 +398,47 @@ def from_region(y: torch.Tensor, mesh, pl, like_shape) -> DTensor:
     return DTensor.from_local(y.contiguous(), mesh, pl, run_check=False,
                               shape=torch.Size(like_shape),
                               stride=_contiguous_stride(like_shape))
+
+
+def einsum(eq: str, *operands, split: Dict[str, str]):
+    """``torch.einsum(eq, *operands)`` on DTensors as a region of plain
+    tensors. ``split`` maps a subscript to a logical axis (``{"b":
+    "batch", "h": "heads"}``): that letter's dimension is split over the
+    axis's mesh axes where they divide it (``logical_to_spec``: replicate
+    rather than pad), and every other dimension is whole on each rank.
+    Each rank contracts its blocks; a mesh axis that splits a letter a
+    tensor lacks makes that tensor a part of a sum over the axis (the
+    result, where the letter is contracted; an operand's gradient,
+    where the letter is another operand's or the result's). Plain
+    operands count as replicated. DTensor's own einsum propagation
+    shards a head axis the mesh does not divide, then cannot unflatten
+    it."""
+    mesh = next(o.device_mesh for o in operands if is_dtensor(o))
+    ins, out = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    size = {c: n for s, o in zip(subs, operands) for c, n in zip(s, o.shape)}
+    axes = {}
+    for c, logical in split.items():
+        if c in size:
+            entry = logical_to_spec(mesh, (logical,), (size[c],))[0]
+            if entry is not None:
+                axes[c] = entry
+
+    def layout(s):
+        """(spec, placements) of a tensor of subscripts ``s``."""
+        spec_ = tuple(axes.get(c) for c in s)
+        parts = [a for c, e in axes.items() if c not in s for a in axes_of(e)]
+        return spec_, placements(mesh, spec_, parts)
+
+    local = []
+    for s, o in zip(subs, operands):
+        spec_, grad = layout(s)
+        if not is_dtensor(o):
+            o = place(mesh, o, (None,) * o.ndim)
+        local.append(local_region(o, spec_, grad))
+    y = torch.einsum(eq, *local)
+    return from_region(y, mesh, layout(out)[1],
+                       tuple(size[c] for c in out))
 
 
 def _contiguous_stride(shape) -> Tuple[int, ...]:

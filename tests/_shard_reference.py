@@ -16,6 +16,9 @@ tree has the same keys, shapes and initializers), the serving prompt of
   under the test's temporary directory, each with a (2, 2)
   ``DeviceMesh``; they import no JAX (each asserts it).
 
+``start`` takes another mesh (shape, axis names) for both sides: as many
+forced devices and rank processes as it has ranks.
+
 ``start`` launches either side or both at once (the serving test runs
 the reference first: the port's decode steps start from its caches);
 ``finish`` waits for them to a deadline and kills any process not done
@@ -169,15 +172,20 @@ MESH = compat_make_mesh({shape!r}, {names!r})
 """
 
 
-def rank_script(body: str, tmp) -> str:
+def world(mesh=MESH) -> int:
+    """The ranks of a mesh (shape, names)."""
+    return math.prod(mesh[0])
+
+
+def rank_script(body: str, tmp, mesh=MESH) -> str:
     fmt = dict(src=SRC, tests=HERE, init=f"file://{tmp}/store",
-               world=WORLD, shape=MESH[0], names=MESH[1])
+               world=world(mesh), shape=mesh[0], names=mesh[1])
     return (RANK_PRELUDE.format(**fmt) + body + RANK_EPILOGUE)
 
 
-def jax_script(body: str) -> str:
-    return JAX_PRELUDE.format(src=SRC, tests=HERE, world=WORLD,
-                              shape=MESH[0], names=MESH[1]) + body
+def jax_script(body: str, mesh=MESH) -> str:
+    return JAX_PRELUDE.format(src=SRC, tests=HERE, world=world(mesh),
+                              shape=mesh[0], names=mesh[1]) + body
 
 
 def _env():
@@ -185,19 +193,19 @@ def _env():
             "PYTHONWARNINGS": "ignore"}
 
 
-def start(jax_body=None, rank_body=None, tmp=None):
+def start(jax_body=None, rank_body=None, tmp=None, mesh=MESH):
     """Start the JAX subprocess (``jax_body``) and the rank processes
-    (``rank_body``, with ``tmp`` for their store); returns the
-    processes."""
+    (``rank_body``, with ``tmp`` for their store) on ``mesh`` (shape,
+    axis names; (2, 2) unless given); returns the processes."""
     procs = []
     if jax_body is not None:
         procs.append(("jax", subprocess.Popen(
-            [sys.executable, "-c", jax_script(jax_body)],
+            [sys.executable, "-c", jax_script(jax_body, mesh)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=_env())))
     if rank_body is not None:
-        script = rank_script(rank_body, tmp)
-        for r in range(WORLD):
+        script = rank_script(rank_body, tmp, mesh)
+        for r in range(world(mesh)):
             procs.append((f"rank{r}", subprocess.Popen(
                 [sys.executable, "-c", script, str(r)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,

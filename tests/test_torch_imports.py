@@ -86,6 +86,25 @@ def test_sharding_modules_are_guarded(monkeypatch):
         LMESH.make_serving_mesh(2)
 
 
+def test_dryrun_modules_are_guarded():
+    """The roofline and the LM dry-run are port files (scanned above);
+    importing them starts no process group, and the dry-run's fake world
+    is gone on leaving."""
+    import torch.distributed as dist
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "launch" / "roofline.py",
+            port / "launch" / "dryrun.py"} <= set(_port_files())
+    from repro_torch.launch import dryrun, roofline  # noqa: F401
+    from repro_torch.launch.mesh import dryrun_world
+    assert not dist.is_initialized()
+    with dryrun_world(4):
+        assert dist.get_world_size() == 4
+        with pytest.raises(RuntimeError, match="already"):
+            with dryrun_world(2):
+                pass
+    assert not dist.is_initialized()
+
+
 def test_guard_catches_forbidden_imports():
     src = "import jax.numpy as jnp\nfrom repro.core import graph\n" \
           "from repro_torch import Engine\nfrom . import ops\n"

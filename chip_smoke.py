@@ -8,6 +8,10 @@
     python3 chip_smoke.py --lm       # device, platform and lm_serve only
     python3 chip_smoke.py --train    # device, platform and train only
     python3 chip_smoke.py --shard    # device, platform and lm_shard only
+    python3 chip_smoke.py --tenancy  # device, platform, build, host and
+                                     # tenancy only
+    python3 chip_smoke.py --examples # device, platform, build and
+                                     # examples only
 
 Phases, in order; any failure exits non-zero:
   1. device : the card's name, the device count, nvidia-smi's name and
@@ -113,6 +117,38 @@ Phases, in order; any failure exits non-zero:
               phase 5's engine, plan_traces flat after warm-up.
  20. shard service profile: torch.profiler over one bucketed batch of 8
               BFS through the shard class.
+     tenancy: the multi-tenant, observed service at full size, in the
+              shape of examples/multi_tenant.py (after the service
+              projection):
+              GraphQueryService(num_shards=4, max_batch=16, slots=16,
+              continuous, backend="kernel", roofline_platform=H100) over
+              three R-MAT graphs (tenant-a phase 3's, tenants b and c from
+              seeds 1 and 2 at TENANCY_SCALE, built in a process of their
+              own from the script's start) under a memory budget of 2.5
+              partitions, weights 2 / 1 / 1, tenant-c capped at 50 qps,
+              burst 5; the watchdog's thread throughout, tracing on. Two
+              rounds of 16 BFS roots a tenant (--seed) and 8 priority-1
+              SSSP roots for tenant-a, round 1 under torch.profiler; K1's
+              count from 0 before and read after (> 0). Every BFS by
+              graph500's rules, SSSP against backend="ref"; an eviction,
+              a spill and a refault at least; tenant-c's sheds those of a
+              replay of its token bucket over the clocks the registry
+              read; every series the metrics twins assert present in the
+              exposition; a retired span for every answered query; the
+              watchdog's stall rule silent at the end (other alerts
+              printed). Lines: answers, slot shares, sheds, the store's
+              counters and refault upload ms, qps and p50/p99 a tenant,
+              alerts, the idle share.
+     examples: each example twin's main() (examples/torch_*.py), after
+              tenancy: quickstart, graph_analytics,
+              query_service and multi_tenant on the card and on the CPU
+              with equal answers (multi_tenant: the queries both served;
+              its rate-capped tenant's admissions replayed through its
+              token bucket on each), K1's launches counted on the card;
+              serve_lm on the card, every greedy token a near-argmax of
+              the CPU's full forward; train_lm EXAMPLE_TRAIN_STEPS steps
+              on the card, its first loss within TRAIN_EXAMPLE_ATOL of
+              the CPU's forward from the same params and batch.
      service projection: one bucketed batch of 8 BFS through the
               one-device class and through the shard class, each with
               roofline_platform=perfmodel.H100 and with the default
@@ -240,6 +276,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import socket
 import subprocess
@@ -256,6 +293,32 @@ BATCH = 8
 TIMING_ITERS = 50
 GRAPH_ID = f"rmat{SCALE}"
 SERVICE_BFS, SERVICE_SSSP, SERVICE_BURST = 64, 8, 8
+# The tenancy phase: tenants b and c are R-MAT graphs of this scale
+# (tenant-a is the smoke's); cut to 19, then 18, only if the script's time
+# limit forces it. Per round, 16 BFS roots a tenant and 8 priority-1 SSSP
+# roots for tenant-a; a memory budget of 2.5 partitions; tenant-c's
+# token bucket (rate_qps, burst).
+TENANCY_SCALE = 20
+TENANCY_BFS, TENANCY_SSSP, TENANCY_ROUNDS = 16, 8, 2
+TENANCY_BUDGET = 2.5
+TENANCY_RATE = (50.0, 5)
+TENANT_GRAPHS_TIMEOUT = 600   # seconds to wait for tenants b and c
+# The examples phase: the graph twins run on the card and on the CPU;
+# train_lm's steps on the card, and its first loss's distance to the
+# CPU's (tests/_train_reference.py's BF16_ATOL, the reduced configs').
+EXAMPLE_GRAPHS = ("torch_quickstart", "torch_graph_analytics",
+                  "torch_query_service", "torch_multi_tenant")
+EXAMPLE_TRAIN_STEPS = 5
+TRAIN_EXAMPLE_ATOL = 0.05
+# Unlabelled series the port's metrics twins assert on a service
+# (tests/test_torch_metrics.py), and the watchdog's gauge.
+TENANCY_SERIES = ("gravfm_queries_completed_total",
+                  "gravfm_trace_events_total", "gravfm_trace_dropped_total",
+                  "gravfm_store_publishes_total",
+                  "gravfm_store_resident_bytes",
+                  "gravfm_store_evictions_total",
+                  "gravfm_store_spills_total", "gravfm_store_faults_total",
+                  "gravfm_tenant_shed_total", "gravfm_alerts_active")
 TIMING_ROUNDS = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 STREAM_BYTES = 4 << 30      # the platform phase's buffers: 80x the L2
@@ -904,7 +967,8 @@ def window_spread(tag: str, tile_start) -> None:
         max=int(tiles.max()))
 
 
-def drive(torch, device, rate: float, full: bool = True, seed: int = 0):
+def drive(torch, device, rate: float, full: bool = True, seed: int = 0,
+          graph_proc=None):
     """Phases 3-20 and the service projection (``full=False``: only the
     host, sweep and timing phases); ``rate`` is the platform phase's
     measured stream rate. Returns the kernels' records for the JSON
@@ -969,6 +1033,8 @@ def drive(torch, device, rate: float, full: bool = True, seed: int = 0):
             rec["service_launches"] = rows.get(
                 (rec["combiner"], rec["dtype"], rec["batch"]), 0)
         k2["paths"].update(paths2)
+        k1["paths"]["tenancy"] = phase_tenancy(torch, device, g, pg, seed,
+                                               graph_proc)
         for rec in k2["variants"]:
             rec["service_launches"] = rows2.get(rec["stack"], {}).get(
                 (rec["combiner"], rec["dtype"], rec["batch"]), 0)
@@ -1772,6 +1838,422 @@ def phase_service_projection(torch, front, roots) -> None:
                 if platform is perfmodel.H100 and not vals[gauges[2]] > 0:
                     raise AssertionError(f"{ck}: no roofline efficiency "
                                          "against the H100 profile")
+
+
+_TENANT_GRAPHS = r"""
+import sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core import graph as G
+out, scale, ef = sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+for c, seed in (("b", 1), ("c", 2)):
+    t0 = time.perf_counter()
+    g = G.rmat(scale, ef, seed=seed, weighted=True).symmetrized()
+    np.savez(f"{out}/tenant-{c}.npz", n=g.num_vertices, src=g.src,
+             dst=g.dst, w=g.weights)
+    print(f"tenant-{c} {time.perf_counter() - t0:.3f}", flush=True)
+"""
+
+
+def start_tenant_graphs():
+    """Build the tenancy phase's tenants b and c (R-MAT TENANCY_SCALE,
+    seeds 1 and 2) in a process of their own, which sees no card, while
+    the earlier phases run; ``tenant_graphs`` collects them. The caller
+    kills the process if it is still running at the end."""
+    out = ROOT / "build" / "tenancy"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", _TENANT_GRAPHS, str(ROOT / "src"), str(out),
+         str(TENANCY_SCALE), str(EDGE_FACTOR)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+
+
+def tenant_graphs(proc) -> tuple:
+    """Wait for ``start_tenant_graphs``' process; return tenants b and c's
+    graphs and the seconds the main process waited for them."""
+    from repro_torch.core import graph as G
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=TENANT_GRAPHS_TIMEOUT)
+    waited = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the tenant graphs' build failed: {out[-2000:]}")
+    log("tenancy", built=repr(out.strip()), waited_s=round(waited, 3))
+    graphs = {}
+    for c in ("b", "c"):
+        path = ROOT / "build" / "tenancy" / f"tenant-{c}.npz"
+        with np.load(path) as z:
+            graphs[f"tenant-{c}"] = G.Graph(int(z["n"]), z["src"], z["dst"],
+                                            z["w"])
+        path.unlink()
+    return graphs, waited
+
+
+def tenancy_series(names, tenants) -> list:
+    """The exposition's series the port's metrics twins
+    (tests/test_torch_metrics.py) assert present on a service, for these
+    tenants: (name, label) pairs, label None for an unlabelled series."""
+    want = [(n, None) for n in TENANCY_SERIES]
+    want += [("gravfm_tenant_completed_total", f'tenant="{t}"')
+             for t in tenants]
+    # on one card (perfmodel.H100) the projection has no interface or
+    # network term: L_PE, L_mem and T_sys
+    want += [("gravfm_model_limit_teps", f'term="{t}"')
+             for t in ("L_PE", "L_mem", "T_sys")]
+    want += [("gravfm_roofline_efficiency", None)]
+    return [(n, lb) for n, lb in want
+            if not any(k.split("{")[0] == n and (lb is None or lb in k)
+                       for k in names)]
+
+
+def phase_tenancy(torch, device, g, pg, seed: int, graph_proc) -> int:
+    """The multi-tenant, observed service at full size, in the shape of
+    examples/multi_tenant.py: three R-MAT graphs (tenant-a the smoke's,
+    tenants b and c from seeds 1 and 2 at TENANCY_SCALE) under a memory
+    budget of TENANCY_BUDGET partitions, weights 2 / 1 / 1, tenant-c
+    capped by a token bucket, the watchdog's thread, the query trace and
+    the exposition; ``graph_proc`` is ``start_tenant_graphs``' process.
+    Two rounds, each tenant in turn: 16 BFS roots from ``seed`` (deadline
+    60 s), and for tenant-a 8 SSSP roots at priority 1 three polls later;
+    round 1 under torch.profiler. Raises on any failure; returns K1's
+    launches over both rounds."""
+    from repro_torch.core import algorithms as ALG
+    from repro_torch.core import perfmodel
+    from repro_torch.core.engine import Engine
+    from repro_torch.kernels import edge_gather
+    from repro_torch.service import (AdmissionError, GraphQueryService,
+                                     QueryRequest)
+    from repro_torch.service.stats import percentile
+    others, waited = tenant_graphs(graph_proc)
+    graphs = {"tenant-a": g, **others}
+    budget = TENANCY_BUDGET * pg.device_nbytes
+    svc = GraphQueryService(device=device, num_shards=PARTS, max_batch=16,
+                            slots=16, scheduling="continuous",
+                            backend="kernel",
+                            roofline_platform=perfmodel.H100,
+                            memory_budget=budget)
+    t1 = time.perf_counter()
+    for gid, gg in graphs.items():
+        svc.add_graph(gid, gg)
+    publish_s = time.perf_counter() - t1
+    svc.set_tenant("tenant-a", weight=2.0)
+    svc.set_tenant("tenant-b", weight=1.0)
+    rate, burst = TENANCY_RATE
+    log("tenancy", graphs=len(graphs), scale_a=SCALE,
+        scale_bc=TENANCY_SCALE,
+        edges={k: v.num_edges for k, v in graphs.items()},
+        waited_s=round(waited, 3), publish_s=round(publish_s, 3),
+        partition_bytes=pg.device_nbytes, budget_bytes=budget,
+        weights="2/1/1", tenant_c=f"rate_qps={rate} burst={burst}")
+
+    rng = np.random.default_rng(seed)
+    roots = {gid: [rng.choice(np.flatnonzero(gg.out_degrees() > 0),
+                              size=TENANCY_BFS, replace=False)
+                   for _ in range(TENANCY_ROUNDS)]
+             for gid, gg in graphs.items()}
+    sssp = [rng.choice(np.flatnonzero(g.out_degrees() > 0),
+                       size=TENANCY_SSSP, replace=False)
+            for _ in range(TENANCY_ROUNDS)]
+    asked = []     # (tenant, kernel, root, request, future)
+
+    def one_round(r: int) -> None:
+        for gid in graphs:
+            for x in roots[gid][r]:
+                req = QueryRequest(gid, "bfs", {"root": int(x)}, tenant=gid,
+                                   deadline_ms=60_000)
+                asked.append((gid, "bfs", int(x), req, svc.submit(req)))
+            if gid == "tenant-a":
+                for _ in range(3):
+                    svc.poll()
+                for x in sssp[r]:
+                    req = QueryRequest(gid, "sssp", {"root": int(x)},
+                                       tenant=gid, priority=1,
+                                       deadline_ms=60_000)
+                    asked.append((gid, "sssp", int(x), req,
+                                  svc.submit(req)))
+            svc.flush()
+
+    # every tenant-c admission is held to a replay of its bucket
+    with admissions_replayed("tenancy") as admissions:
+        svc.set_tenant("tenant-c", weight=1.0, rate_qps=rate, burst=burst)
+        svc.start_watchdog()
+        try:
+            torch.cuda.synchronize()
+            edge_gather.launches = 0
+            t0 = time.perf_counter()
+            one_round(0)
+            torch.cuda.synchronize()
+            round0_s = time.perf_counter() - t0
+            _, busy = profiled(torch, lambda: one_round(1),
+                               tenancy="round 1")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = edge_gather.launches
+            evaluations = svc.watchdog.evaluations
+            active = svc.watchdog.active_alerts()
+        finally:
+            svc.stop_watchdog()
+    snap = svc.stats_snapshot()
+
+    # answers: every BFS by graph500's rules, SSSP against the oracle
+    answered, shed, ref = [], {}, {}
+    for gid, kernel, root, req, fut in asked:
+        exc = fut.exception(timeout=0)
+        if exc is not None:
+            if not isinstance(exc, AdmissionError):
+                raise exc
+            shed[gid] = shed.get(gid, 0) + 1
+            continue
+        res = fut.result(timeout=0)
+        answered.append((gid, kernel, req, res))
+        if kernel == "bfs":
+            validate_bfs(torch, graphs[gid], res.state["parent"], root,
+                         res.supersteps, res.messages, device)
+        else:
+            if "sssp" not in ref:
+                ref["sssp"] = Engine(ALG.sssp(), pg, backend="ref",
+                                     device=device)
+            same_result(res, ref["sssp"].run(root=root), "sssp")
+    del ref
+    log("tenancy", answers=len(answered),
+        bfs_checked=sum(k == "bfs" for _, k, _, _ in answered),
+        sssp_versus_ref=sum(k == "sssp" for _, k, _, _ in answered),
+        shed=shed, launches=launches)
+    if launches == 0:
+        raise AssertionError("tenancy: the service launched no K1")
+
+    # the sheds are tenant-c's refused admissions, and nothing else
+    refused = sum(not ok for name, _, ok in admissions
+                  if name == "tenant-c")
+    if shed.get("tenant-c", 0) != refused or set(shed) - {"tenant-c"}:
+        raise AssertionError(f"tenancy: sheds {shed} against the bucket's "
+                             f"{refused}")
+
+    # the store: spills to the host tier and refaults
+    if (snap["store_evictions"] < 1 or snap["store_spills"] < 1
+            or snap["store_faults"] < 1):
+        raise AssertionError("tenancy: no eviction, spill or refault: "
+                             + str({k: v for k, v in snap.items()
+                                    if k.startswith("store_")}))
+    log("tenancy", evictions=snap["store_evictions"],
+        spills=snap["store_spills"], refaults=snap["store_faults"],
+        discards=snap["store_discards"],
+        overcommits=snap["store_budget_overcommits"],
+        resident_graphs=snap["store_resident_graphs"],
+        store_refault_upload_ms=snap["store_refault_upload_ms"],
+        preemptions=snap["preemptions"], lane_restores=snap["lane_restores"])
+
+    # each tenant's slot share: its queries' lane-supersteps over all
+    # lanes stepped, from the trace's superstep events
+    tenant_of = {req.qid: gid for gid, _, req, _ in answered}
+    lanes = {gid: 0 for gid in graphs}
+    events = svc.trace.snapshot()
+    for e in events:
+        if e.kind == "superstep":
+            for qid in e.attrs["lanes"].values():
+                if qid in tenant_of:
+                    lanes[tenant_of[qid]] += 1
+    total = max(1, sum(lanes.values()))
+    # each tenant's latency, submit to retire, from its queries' spans
+    spans = svc.trace.spans()
+    for gid, t in snap["tenants"].items():
+        ms = [1e3 * (sp.retired_s - sp.submitted_s)
+              for sp in (spans.get(req.qid) for tg, _, req, _ in answered
+                         if tg == gid)
+              if sp is not None and sp.retired_s is not None]
+        log("tenancy", tenant=gid, completed=t["completed"], shed=t["shed"],
+            qps=t["completed"] / wall, slot_share=lanes.get(gid, 0) / total,
+            latency_p50_ms=percentile(ms, 50), latency_p99_ms=percentile(
+                ms, 99))
+
+    # one trace per answered query, retired or (a root a round repeats)
+    # served from the result cache
+    missing = [req.qid for _, _, req, _ in answered
+               if req.qid not in spans
+               or spans[req.qid].outcome not in ("retired", "cache_hit")]
+    if missing or svc.trace.dropped:
+        raise AssertionError(f"tenancy: {len(missing)} answered queries "
+                             f"without a retired or cache-hit span, "
+                             f"{svc.trace.dropped} events dropped")
+
+    # the exposition, scraped at the end
+    text = svc.metrics_text()
+    names = [ln.rsplit(" ", 1)[0] for ln in text.splitlines()
+             if ln and not ln.startswith("#")]
+    absent = tenancy_series(names, graphs)
+    if absent:
+        raise AssertionError(f"tenancy: series absent: {absent}")
+
+    # the watchdog: every alert printed, the stall rule silent at the end
+    for e in events:
+        if e.kind == "alert":
+            log("tenancy", alert=e.attrs["rule"], state=e.attrs["state"],
+                subject=e.klass, kind=e.attrs["alert_kind"])
+    stalled = [a for a in active if a.rule == "stall"]
+    log("tenancy", watchdog_evaluations=evaluations,
+        active_alerts=[(a.rule, a.subject) for a in active],
+        series=len(names), spans=len(spans), trace_events=len(events),
+        round0_s=round(round0_s, 3), wall_s=round(wall, 3),
+        round1_device_busy_s=round(busy, 6), qps=snap["qps"],
+        latency_p50_ms=snap["latency_p50_ms"],
+        latency_p99_ms=snap["latency_p99_ms"])
+    if stalled or evaluations < 1:
+        raise AssertionError(f"tenancy: watchdog {evaluations} evaluations, "
+                             f"stall active at the end: {stalled}")
+    return launches
+
+
+def example(name: str):
+    """An example twin (examples/<name>.py) loaded as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def admissions_replayed(tag: str):
+    """Inside the block, every rate-capped tenant's admissions are
+    recorded (the clock each was taken at, and the answer); on leaving,
+    they are replayed through a fresh TokenBucket per tenant, and the
+    block fails unless the registry decided as its bucket allows. Yields
+    the list of admissions, ``(tenant, clock, admitted)``."""
+    from repro_torch.store import TenantRegistry, TokenBucket
+    configured, seen = {}, []
+    configure, admit = TenantRegistry.configure, TenantRegistry.admit
+
+    def configure_(self, name, *, now=None, **kw):
+        now = time.perf_counter() if now is None else now
+        if kw.get("rate_qps") is not None:
+            configured[name] = (kw["rate_qps"], kw.get("burst"), now)
+        return configure(self, name, now=now, **kw)
+
+    def admit_(self, name, now=None):
+        now = time.perf_counter() if now is None else now
+        ok = admit(self, name, now=now)
+        seen.append((name, now, ok))
+        return ok
+    TenantRegistry.configure, TenantRegistry.admit = configure_, admit_
+    try:
+        yield seen
+    finally:
+        TenantRegistry.configure, TenantRegistry.admit = configure, admit
+    buckets = {n: TokenBucket(r, b, now=t)
+               for n, (r, b, t) in configured.items()}
+    for n, now, ok in seen:
+        if n in buckets and buckets[n].try_take(now=now) != ok:
+            raise AssertionError(f"{tag}: {n}'s admissions differ from "
+                                 "its token bucket's")
+
+
+def same_answers(name: str, got: dict, want: dict) -> None:
+    """A graph example's answers on the card against its CPU run. The
+    multi-tenant one sheds by the clock: there, the queries both runs
+    served must agree, and everything else but the rounds."""
+    if name == "torch_multi_tenant":
+        got, want = dict(got), dict(want)
+        a, b = got.pop("answers"), want.pop("answers")
+        rounds = [(g, w) for g, w in zip(got.pop("rounds"),
+                                         want.pop("rounds"))
+                  if g[1] != "tenant-c"]
+        both = set(a) & set(b)
+        tenants = [(got["tenants"].pop("tenant-c"),
+                    want["tenants"].pop("tenant-c"))]
+        if (any(g != w for g, w in rounds) or not both
+                or any(a[k] != b[k] for k in both)
+                or {k for k in a if k[1] != "tenant-c"}
+                != {k for k in b if k[1] != "tenant-c"}):
+            raise AssertionError(f"{name}: the card's answers differ")
+        log("examples", example=name, tenant_c_card_cpu=tenants,
+            both_served=len(both))
+    if got != want:
+        raise AssertionError(f"{name}: the card's answers {got} differ "
+                             f"from the CPU's {want}")
+
+
+def phase_examples(torch) -> int:
+    """Each example twin's main() in this process. The graph twins run on
+    the card and on the CPU and must give the same answers; serve_lm's
+    greedy tokens on the card must be near-argmaxes of the CPU's full
+    forward over them; train_lm trains EXAMPLE_TRAIN_STEPS steps on the
+    card, its first loss within TRAIN_EXAMPLE_ATOL of the CPU's forward
+    on the same params and batch. Returns K1's launches on the card."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.kernels import edge_gather
+    from repro_torch.models import lm as LM
+    from repro_torch.train import loop as TL
+    launches = 0
+    for name in EXAMPLE_GRAPHS:
+        mod = example(name)
+        t0 = time.perf_counter()
+        with admissions_replayed(f"{name} cpu"):
+            want = mod.main(device="cpu")
+        cpu_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        edge_gather.launches = 0
+        t0 = time.perf_counter()
+        with admissions_replayed(f"{name} card"):
+            got = mod.main(device="cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        n = edge_gather.launches
+        same_answers(name, got, want)
+        log("examples", example=name, cpu_s=round(cpu_s, 3),
+            card_s=round(card_s, 3), launches=n, answers="equal to the CPU's")
+        if n == 0:
+            raise AssertionError(f"{name}: no K1 launch on the card")
+        launches += n
+
+    mod = example("torch_serve_lm")
+    t0 = time.perf_counter()
+    out = mod.main(device="cuda")
+    card_s = time.perf_counter() - t0
+    for arch, (prompts, gen) in out.items():
+        cfg = configs.get(arch, reduced=True)
+        seq = torch.from_numpy(np.concatenate([prompts, gen[:, :-1]], 1))
+        with torch.inference_mode():
+            logits = LM.lm_forward(mod.params_for(cfg), seq, cfg)
+        near_argmax(torch, f"example_serve_{arch}",
+                    logits[:, prompts.shape[1] - 1:].float(),
+                    torch.from_numpy(gen).long())
+    log("examples", example="torch_serve_lm", card_s=round(card_s, 3),
+        archs=list(out))
+
+    mod = example("torch_train_lm")
+    ckpt = ROOT / "build" / "examples_train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    out = mod.main(argv, device="cuda")
+    card_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _, cfg, dc, oc, tc = mod.setup(argv, device="cpu")
+    t0 = time.perf_counter()
+    cpu = TL.Trainer(cfg, dc, oc, dataclasses.replace(tc, ckpt_dir=None),
+                     device="cpu")
+    params, _ = cpu._init_state()
+    with torch.no_grad():
+        first = float(TL.make_loss(cfg)(params, TL.batch_on(
+            cpu._make_batch(0), torch.device("cpu"))))
+    cpu_s = time.perf_counter() - t0
+    del params, cpu
+    (step0, card), *_ = out["losses"]
+    log("examples", example="torch_train_lm", steps=EXAMPLE_TRAIN_STEPS,
+        n_params=out["n_params"], losses=[(s, round(l, 6))
+                                          for s, l in out["losses"]],
+        first_loss_card=card, first_loss_cpu=first,
+        gap=abs(card - first), atol=TRAIN_EXAMPLE_ATOL,
+        card_s=round(card_s, 3), cpu_forward_s=round(cpu_s, 3))
+    if (step0 != 0 or out["final_step"] != EXAMPLE_TRAIN_STEPS - 1
+            or not all(np.isfinite(l) for _, l in out["losses"])
+            or abs(card - first) > TRAIN_EXAMPLE_ATOL):
+        raise AssertionError("torch_train_lm: the card's first loss "
+                             f"{card} against the CPU's {first}")
+    return launches
 
 
 def phase_dryrun(torch) -> None:
@@ -3518,9 +4000,26 @@ def main() -> int:
         phase_lm_shard(torch, seed, rate)
         return 0
     phase_build()
+    if "--examples" in args:
+        phase_examples(torch)
+        return 0
     full = "--kernels" not in args
-    records = drive(torch, torch.device("cuda"), rate, full, seed)
+    graph_proc = (start_tenant_graphs()
+               if full or "--tenancy" in args else None)
+    try:
+        if "--tenancy" in args:
+            g, pg = phase_host()
+            phase_tenancy(torch, torch.device("cuda"), g, pg, seed,
+                          graph_proc)
+            return 0
+        records = drive(torch, torch.device("cuda"), rate, full, seed,
+                        graph_proc)
+    finally:
+        if graph_proc is not None and graph_proc.poll() is None:
+            graph_proc.kill()
+            graph_proc.wait()
     if full:
+        records[0]["paths"]["examples"] = phase_examples(torch)
         phase_dryrun(torch)
         phase_lm_dryrun(torch)
         phase_lm_serve(torch, seed, rate)

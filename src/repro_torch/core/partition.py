@@ -47,6 +47,7 @@ __all__ = [
     "PARTITIONERS",
     "PartitionedGraph",
     "partition_graph",
+    "edge_balance",
 ]
 
 
@@ -389,3 +390,14 @@ def partition_graph(g: Graph, num_parts: int, *, method: str = "greedy",
         src_for_stats=src, dst_for_stats=dst,
     )
 
+
+def edge_balance(pg: PartitionedGraph) -> Dict[str, float]:
+    """Imbalance metrics for Fig. 12/13 style experiments."""
+    per_shard = pg.in_valid.sum(axis=1).astype(np.float64)
+    mean = per_shard.mean() if per_shard.size else 0.0
+    return {
+        "max_over_mean": float(per_shard.max() / max(mean, 1e-9)),
+        "cross_frac": float(
+            (pg.part_of[pg.src_for_stats] != pg.part_of[pg.dst_for_stats]).mean()
+            if pg.num_edges else 0.0),
+    }

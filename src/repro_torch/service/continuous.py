@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import math
 import threading
 import time
@@ -75,6 +76,11 @@ from .batching import QueryClass, QueryRequest
 from .plans import StepperPlan
 
 __all__ = ["ContinuousScheduler", "ParkedQueue", "class_key"]
+
+# the longest a pump waits for a submit that counted itself to take the
+# lock (``_let_arrivals_in``); it ends in microseconds unless the lock's
+# owner is busy or blocked
+ARRIVAL_WAIT_S = 1.0
 
 
 def class_key(qclass: QueryClass) -> str:
@@ -264,6 +270,11 @@ class ContinuousScheduler:
         self._depth_bucket_of = depth_bucket_of
         self._classes: Dict[QueryClass, _ClassRun] = {}
         self._lock = threading.RLock()  # lock: scheduler
+        # the admission window between supersteps (_let_arrivals_in):
+        # each submit waiting for the lock, by ticket, with the event it
+        # sets once it has the lock
+        self._arrivals: Dict[int, threading.Event] = {}
+        self._tickets = itertools.count()
 
     # ---------------- admission ---------------------------------------
     def _predict_depth(self, qclass: QueryClass,
@@ -286,7 +297,11 @@ class ContinuousScheduler:
         return float(resid) if resid is not None else 1.0
 
     def submit(self, qclass: QueryClass, req: QueryRequest, fut) -> None:
+        ticket, entered = next(self._tickets), threading.Event()
+        self._arrivals[ticket] = entered     # dict ops are atomic
         with self._lock:
+            del self._arrivals[ticket]
+            entered.set()
             cr = self._classes.get(qclass)
             if cr is None:
                 # pin the graph version BEFORE compiling against it: the
@@ -371,12 +386,35 @@ class ContinuousScheduler:
         return self.pending() > 0
 
     # ---------------- the superstep pump ------------------------------
+    def _let_arrivals_in(self) -> None:
+        """Open the admission window before the next superstep takes
+        the lock. ``threading`` locks are not fair: a pump that releases
+        the lock and takes it again at once mostly wins it back from a
+        ``submit`` that is waiting for it, so a submit that raced a
+        drain could wait out the whole drain. Every ``submit`` enters an
+        event in ``_arrivals`` before it waits for the lock and sets it
+        once it has the lock; this waits for the events there on entry
+        (later arrivals cannot hold the pump back, and an event once set
+        stays set, so several pumping threads miss no wakeup). A pump on
+        a thread that already owns the lock (a done-callback that
+        queries) does not wait: the submits cannot enter before it
+        returns. ``ARRIVAL_WAIT_S`` bounds the wait when the lock's owner
+        is itself waiting on this thread."""
+        if self._lock._is_owned():
+            return
+        end = time.monotonic() + ARRIVAL_WAIT_S
+        for entered in tuple(self._arrivals.copy().values()):
+            if not entered.wait(max(0.0, end - time.monotonic())):
+                return
+
     def pump(self) -> int:
         """One superstep for every class with work; returns the number
         of queries retired. Classes that go idle release their graph
         pin (the store may then evict the graph under budget
-        pressure)."""
+        pressure). A ``submit`` already waiting for the lock enters
+        before the superstep."""
         retired = 0
+        self._let_arrivals_in()
         with self._lock:
             for qclass, cr in list(self._classes.items()):
                 retired += self._pump_class(qclass, cr)
@@ -399,6 +437,7 @@ class ContinuousScheduler:
                     break
                 total += self.pump()
             else:
+                self._let_arrivals_in()
                 with self._lock:
                     cr = self._classes.get(qclass)
                     if cr is None or cr.idle():

@@ -227,7 +227,8 @@ class Trainer:
     latest complete checkpoint automatically (fault tolerance: kill the
     process at any point and call run() again). Trains on the card unless
     ``device="cpu"`` is asked for; a fresh run draws its params from a
-    generator on that device seeded with ``tc.seed``.
+    CPU generator seeded with ``tc.seed`` and moves them to the device,
+    so the card and the CPU start from the same params.
 
     ``mesh``: a ``DeviceMesh`` spanning the process group; every rank
     draws the same params and keeps its shards (``sharding.
@@ -259,8 +260,11 @@ class Trainer:
                                        L.axes_tree(self.spec))
 
     def _init_state(self):
-        gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
-        params = L.init_params(self.spec, generator=gen)
+        # drawn on the CPU, then moved: the same params on any device, as
+        # the reference's PRNG draws them (a CUDA generator draws others)
+        gen = torch.Generator().manual_seed(self.tc.seed)
+        params = L.tree_map(lambda t: t.to(self.device),
+                            L.init_params(self.spec, generator=gen))
         if self.mesh is not None:
             params = SH.place_tree(self.mesh, params, self._specs())
         return params, adamw_init(params)

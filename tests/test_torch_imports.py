@@ -3,13 +3,16 @@ fallback to the CPU.
 
 Every ``.py`` under ``src/repro_torch/`` (the training modules of
 ``train/``, ``data/`` and ``launch/train.py`` among them),
-``chip_smoke.py`` and ``lm_precision_probe.py`` is parsed with ``ast``;
+``chip_smoke.py``, ``lm_precision_probe.py`` and the example twins
+``examples/torch_*.py`` is parsed with ``ast``;
 an import of ``jax``, ``jaxlib`` or ``repro`` (or any of their
 submodules) fails the test. ``repro_torch`` itself is allowed. Every
 entry point (engines, meshes, LM serving, training, checkpoints)
-raises without a card unless the CPU is asked for.
+raises without a card unless the CPU is asked for; so does every example
+twin's ``main`` unless ``--device cpu`` (``device="cpu"``) is given.
 """
 import ast
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +43,9 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLES = ("torch_quickstart", "torch_graph_analytics",
+            "torch_query_service", "torch_multi_tenant", "torch_serve_lm",
+            "torch_train_lm")
 TRAINING = ("train/__init__.py", "train/optimizer.py", "train/loop.py",
             "train/checkpoint.py", "train/compress.py", "data/__init__.py",
             "data/pipeline.py", "launch/train.py")
@@ -48,6 +54,7 @@ TRAINING = ("train/__init__.py", "train/optimizer.py", "train/loop.py",
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "lm_precision_probe.py"]
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     return files
 
 
@@ -71,6 +78,33 @@ def test_port_imports_no_jax():
             if mod.split(".")[0] in FORBIDDEN:
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not bad, bad
+
+
+def test_example_twins_are_scanned():
+    assert {ROOT / "examples" / f"{name}.py" for name in EXAMPLES} <= set(
+        _port_files())
+    for name in EXAMPLES:
+        text = (ROOT / "examples" / f"{name}.py").read_text()
+        assert 'add_argument("--device"' in text, name
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_twin_defaults_to_the_card(name, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = _example(name).main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if name == "torch_train_lm":
+            main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+        else:
+            main()
 
 
 def test_sharding_modules_are_guarded(monkeypatch):

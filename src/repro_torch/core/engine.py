@@ -40,6 +40,7 @@ from ..convert import state_to_numpy
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..kernels.layout import DeviceLayout
+from . import obs
 from .gas import GasKernel
 from .partition import PartitionedGraph
 from .stepper import LaneStepper, SuperstepProgram, tree_map, tree_nbytes
@@ -247,40 +248,48 @@ class Engine:
                                     combiner)
 
     def _deliver_gravfm(self, data: _GravfmData, payload, active):
-        """Broadcast updates; receiver-side scatter + gather-combine."""
+        """Broadcast updates; receiver-side scatter + gather-combine.
+        Spans: ``engine.broadcast``, ``engine.scatter``, ``engine.combine``
+        (a kernel with a carry scatters and combines it in a second pair),
+        ``engine.stats``."""
         k, P, Vm = self.kernel, self._P, self._Vm
         B = payload.shape[0]
-        # THE broadcast: every shard reads every shard's updates.
-        vals = payload.reshape(B, P * Vm).index_select(1, data.src_slot)
-        act = (active.reshape(B, P * Vm).index_select(1, data.src_slot)
-               & data.lane_valid)
-        msg = k.scatter(vals, data.w, data.src_gid, data.src_outdeg)
-        ident = kops.identity_for(k.combiner, k.msg_dtype)
-        masked = torch.where(act, msg, ident)
+        with obs.span("engine.broadcast"):
+            # THE broadcast: every shard reads every shard's updates.
+            vals = payload.reshape(B, P * Vm).index_select(1, data.src_slot)
+            act = (active.reshape(B, P * Vm).index_select(1, data.src_slot)
+                   & data.lane_valid)
+        with obs.span("engine.scatter"):
+            msg = k.scatter(vals, data.w, data.src_gid, data.src_outdeg)
+            ident = kops.identity_for(k.combiner, k.msg_dtype)
+            masked = torch.where(act, msg, ident)
 
-        acc_full = self._combine(data, masked, k.combiner)
-        acc = acc_full.reshape(B, P, Vm + 1)[:, :, :Vm]
-
-        if k.got_from_identity:
-            got = acc != ident
-        else:
-            gv = act.to(torch.int32)
-            got_full = self._combine(data, gv, "max")
-            got = got_full.reshape(B, P, Vm + 1)[:, :, :Vm] > 0
+        with obs.span("engine.combine"):
+            acc_full = self._combine(data, masked, k.combiner)
+            acc = acc_full.reshape(B, P, Vm + 1)[:, :, :Vm]
+            if k.got_from_identity:
+                got = acc != ident
+            else:
+                gv = act.to(torch.int32)
+                got_full = self._combine(data, gv, "max")
+                got = got_full.reshape(B, P, Vm + 1)[:, :, :Vm] > 0
 
         carry = None
         if k.carry_dtype is not None:
             cident = kops.identity_for("min", k.carry_dtype)
-            cvals = k.scatter_carry(vals, data.w, data.src_gid,
-                                    data.src_outdeg)
-            acc_at_lane = acc_full.index_select(1, data.seg_take)
-            winner = act & (masked == acc_at_lane)
-            cmasked = torch.where(winner, cvals, cident)
-            carry_full = self._combine(data, cmasked, "min")
-            carry = carry_full.reshape(B, P, Vm + 1)[:, :, :Vm]
+            with obs.span("engine.scatter"):
+                cvals = k.scatter_carry(vals, data.w, data.src_gid,
+                                        data.src_outdeg)
+            with obs.span("engine.combine"):
+                acc_at_lane = acc_full.index_select(1, data.seg_take)
+                winner = act & (masked == acc_at_lane)
+                cmasked = torch.where(winner, cvals, cident)
+                carry_full = self._combine(data, cmasked, "min")
+                carry = carry_full.reshape(B, P, Vm + 1)[:, :, :Vm]
 
-        n_msgs = act.sum(dim=1)
-        n_remote = (act & data.lane_remote).sum(dim=1)
+        with obs.span("engine.stats"):
+            n_msgs = act.sum(dim=1)
+            n_remote = (act & data.lane_remote).sum(dim=1)
         return acc, got, carry, {"n_msgs": n_msgs, "n_remote": n_remote}
 
     def _deliver_gravf(self, data: _GravfData, payload, active):
@@ -289,49 +298,56 @@ class Engine:
         The JAX engine folds this mode with its ``segment_combine`` oracle
         for every backend, with no Pallas kernel; so does the port, with
         the ``scatter_reduce_`` oracle on the engine's device (the
-        reference's own design, not a fallback)."""
+        reference's own design, not a fallback). Spans as
+        :meth:`_deliver_gravfm`'s; the exchange is in ``engine.scatter``."""
         k, P, Vm = self.kernel, self._P, self._Vm
         B = payload.shape[0]
         S = self._num_segments
         shape = (B,) + tuple(data.pair_w.shape)
-        vals = payload.reshape(B, P * Vm).index_select(
-            1, data.pair_src_slot).view(shape)
-        act = active.reshape(B, P * Vm).index_select(
-            1, data.pair_src_slot).view(shape) & data.pair_valid
-        msg = k.scatter(vals, data.pair_w, data.pair_src_gid,
-                        data.pair_src_outdeg)
-        ident = kops.identity_for(k.combiner, k.msg_dtype)
-        masked = torch.where(act, msg, ident)
+        with obs.span("engine.broadcast"):
+            vals = payload.reshape(B, P * Vm).index_select(
+                1, data.pair_src_slot).view(shape)
+            act = active.reshape(B, P * Vm).index_select(
+                1, data.pair_src_slot).view(shape) & data.pair_valid
+        with obs.span("engine.scatter"):
+            msg = k.scatter(vals, data.pair_w, data.pair_src_gid,
+                            data.pair_src_outdeg)
+            ident = kops.identity_for(k.combiner, k.msg_dtype)
+            masked = torch.where(act, msg, ident)
+            # THE unicast exchange: the shard-axis transpose.
+            recv = masked.transpose(1, 2).reshape(B, -1)
+            recv_act = act.transpose(1, 2).reshape(B, -1)
 
-        # THE unicast exchange: the shard-axis transpose.
-        recv = masked.transpose(1, 2).reshape(B, -1)
-        recv_act = act.transpose(1, 2).reshape(B, -1)
-        acc_full = kref.segment_combine(recv, data.recv_seg, S, k.combiner)
-        acc = acc_full.reshape(B, P, Vm + 1)[:, :, :Vm]
-
-        if k.got_from_identity:
-            got = acc != ident
-        else:
-            got_full = kref.segment_combine(recv_act.to(torch.int32),
-                                            data.recv_seg, S, "max")
-            got = got_full.reshape(B, P, Vm + 1)[:, :, :Vm] > 0
+        with obs.span("engine.combine"):
+            acc_full = kref.segment_combine(recv, data.recv_seg, S,
+                                            k.combiner)
+            acc = acc_full.reshape(B, P, Vm + 1)[:, :, :Vm]
+            if k.got_from_identity:
+                got = acc != ident
+            else:
+                got_full = kref.segment_combine(recv_act.to(torch.int32),
+                                                data.recv_seg, S, "max")
+                got = got_full.reshape(B, P, Vm + 1)[:, :, :Vm] > 0
 
         carry = None
         if k.carry_dtype is not None:
             cident = kops.identity_for("min", k.carry_dtype)
-            cvals = k.scatter_carry(vals, data.pair_w, data.pair_src_gid,
-                                    data.pair_src_outdeg)
-            crecv = torch.where(act, cvals, cident).transpose(1, 2).reshape(
-                B, -1)
-            acc_at_edge = acc_full.index_select(1, data.recv_seg_take)
-            winner = recv_act & (recv == acc_at_edge)
-            cmasked = torch.where(winner, crecv, cident)
-            carry_full = kref.segment_combine(cmasked, data.recv_seg, S,
-                                              "min")
-            carry = carry_full.reshape(B, P, Vm + 1)[:, :, :Vm]
+            with obs.span("engine.scatter"):
+                cvals = k.scatter_carry(vals, data.pair_w, data.pair_src_gid,
+                                        data.pair_src_outdeg)
+                crecv = torch.where(act, cvals, cident).transpose(
+                    1, 2).reshape(B, -1)
+            with obs.span("engine.combine"):
+                acc_at_edge = acc_full.index_select(1, data.recv_seg_take)
+                winner = recv_act & (recv == acc_at_edge)
+                cmasked = torch.where(winner, crecv, cident)
+                carry_full = kref.segment_combine(cmasked, data.recv_seg, S,
+                                                  "min")
+                carry = carry_full.reshape(B, P, Vm + 1)[:, :, :Vm]
 
-        n_msgs = act.flatten(1).sum(dim=1)
-        n_remote = (act & data.pair_cross).flatten(1).sum(dim=1)
+        with obs.span("engine.stats"):
+            n_msgs = act.flatten(1).sum(dim=1)
+            n_remote = (act & data.pair_cross).flatten(1).sum(dim=1)
         return acc, got, carry, {"n_msgs": n_msgs, "n_remote": n_remote}
 
     # ------------------------------------------------------------------
@@ -368,9 +384,12 @@ class Engine:
                     stats["bcast_filtered_words"] + n_flt.to(torch.float32),
             }
 
-        return SuperstepProgram(self.kernel, deliver,
+        prog = SuperstepProgram(self.kernel, deliver,
                                 init_stats=init_stats,
                                 update_stats=update_stats)
+        prog.lanes = int((self._data.src_slot if self.mode == "gravfm"
+                          else self._data.pair_src_slot).numel())
+        return prog
 
     # ------------------------------------------------------------------
     @property
@@ -458,10 +477,12 @@ class Engine:
         comm["scheme"] = ("gravfm_broadcast" if self.mode == "gravfm"
                           else "gravf_unicast")
         comm["wire_words"] = comm[self.wire_stat]
+        messages = int(stats["messages"][q])
+        obs.counters.add("engine.messages", messages)
         return EngineResult(
             state=collect(self.pg, state_q),
             supersteps=int(superstep[q]),
-            messages=int(stats["messages"][q]),
+            messages=messages,
             comm=comm,
             raw_state=state_q,
         )
@@ -470,19 +491,22 @@ class Engine:
         cap = max_supersteps or self.kernel.max_supersteps or HARD_SUPERSTEP_CAP
         carry = self._prog.run_loop(self._device_data(), cap, self.params,
                                     qkw, batch)
-        state = state_to_numpy(carry.state)
-        steps = carry.superstep.cpu().numpy()
-        stats = state_to_numpy(carry.stats)
-        return [self._result(state, steps, stats, q) for q in range(batch)]
+        with obs.span("engine.collect"):
+            state = state_to_numpy(carry.state)
+            steps = carry.superstep.cpu().numpy()
+            stats = state_to_numpy(carry.stats)
+            return [self._result(state, steps, stats, q)
+                    for q in range(batch)]
 
     def run(self, max_supersteps: Optional[int] = None,
             **query_kwargs) -> EngineResult:
         """Single query. ``query_kwargs`` (e.g. ``root=7``) override the
         kernel's defaults in ``init_state``."""
-        qkw = query_tensors(self.kernel, query_kwargs, self.device,
-                            batch=False)
-        self._note_trace(("run", tuple(sorted(qkw))))
-        return self._run(max_supersteps, qkw, 1)[0]
+        with obs.span("engine.call"):
+            qkw = query_tensors(self.kernel, query_kwargs, self.device,
+                                batch=False)
+            self._note_trace(("run", tuple(sorted(qkw))))
+            return self._run(max_supersteps, qkw, 1)[0]
 
     def run_batch(self, max_supersteps: Optional[int] = None,
                   **query_arrays) -> "list[EngineResult]":
@@ -490,11 +514,12 @@ class Engine:
         maps the kernel's ``query_params`` (e.g. ``root``) to (B,) arrays.
         Returns one :class:`EngineResult` per query, bit-identical to B
         sequential :meth:`run` calls."""
-        qkw = query_tensors(self.kernel, query_arrays, self.device,
-                            batch=True)
-        batch = batch_size(qkw)
-        self._note_trace(("run_batch", batch, tuple(sorted(qkw))))
-        return self._run(max_supersteps, qkw, batch)
+        with obs.span("engine.call"):
+            qkw = query_tensors(self.kernel, query_arrays, self.device,
+                                batch=True)
+            batch = batch_size(qkw)
+            self._note_trace(("run_batch", batch, tuple(sorted(qkw))))
+            return self._run(max_supersteps, qkw, batch)
 
     # ------------------------------------------------------------------
     def make_stepper(self, width: int) -> LaneStepper:

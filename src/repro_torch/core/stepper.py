@@ -31,6 +31,8 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from . import obs
+
 __all__ = ["StepCarry", "SuperstepProgram", "LaneStepper",
            "LaneStepperBase", "select_lanes", "tree_map", "tree_nbytes",
            "LaneMeta", "LaneCheckpoint", "LaneTable", "lane_dtype",
@@ -76,9 +78,12 @@ def tree_map(fn, tree):
 
 
 def tree_nbytes(tree) -> int:
-    """Bytes of every tensor of such a structure."""
+    """Bytes of every tensor (or host numpy array: a fetched carry) of
+    such a structure."""
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
+    if isinstance(tree, np.ndarray):
+        return int(tree.nbytes)
     if isinstance(tree, dict):
         tree = tree.values()
     elif not isinstance(tree, tuple):
@@ -112,7 +117,16 @@ class SuperstepProgram:
     (or the process's own shards of them). ``global_any`` reduces the
     (B,) live bits of this process's shards across the mesh (the
     identity for the one-device engine, ``pmax`` for the shard engine).
+
+    Its phases are :mod:`obs` spans (``engine.init``, ``engine.sync``,
+    ``engine.superstep`` and inside it ``engine.gather``,
+    ``engine.stats``, ``engine.apply``, ``engine.freeze``; the deliver
+    adds its own). ``lanes`` is the lane count one deliver passes over
+    per query, padding included, which ``engine.lanes_scanned`` counts;
+    0 (a program whose engine sets none) counts nothing.
     """
+
+    lanes: int = 0
 
     def __init__(self, kernel, deliver: Callable[..., Any], *,
                  init_stats: Callable[[int], Dict[str, torch.Tensor]],
@@ -128,25 +142,28 @@ class SuperstepProgram:
     def _applied(self, data, state, superstep):
         batch = superstep.shape[0]
         vshape = data.vert_gid.shape
-        state, payload, active = self.kernel.apply(
-            state, data.vert_gid, data.out_deg, superstep)
-        active = _over_queries(active, batch, vshape) & data.vert_valid
-        return state, _over_queries(payload, batch, vshape), active
+        with obs.span("engine.apply"):
+            state, payload, active = self.kernel.apply(
+                state, data.vert_gid, data.out_deg, superstep)
+            active = _over_queries(active, batch, vshape) & data.vert_valid
+            return state, _over_queries(payload, batch, vshape), active
 
     def init_carry(self, data, params: Dict[str, Any],
                    query_kwargs: Dict[str, Any], batch: int) -> StepCarry:
         """Kernel ``init_state`` + the superstep-0 ``apply`` (paper §4.3:
         "the barrier is injected into the apply modules")."""
         vshape = data.vert_gid.shape
-        state = self.kernel.init_state(data.vert_gid, data.out_deg,
-                                       data.vert_valid,
-                                       **{**params, **query_kwargs})
-        state = {k: _over_queries(v, batch, vshape).contiguous()
-                 for k, v in state.items()}
-        s = torch.zeros(batch, dtype=torch.int32,
-                        device=data.vert_gid.device)
-        state, payload, active = self._applied(data, state, s)
-        return StepCarry(state, payload, active, s, self.init_stats(batch))
+        with obs.span("engine.init"):
+            state = self.kernel.init_state(data.vert_gid, data.out_deg,
+                                           data.vert_valid,
+                                           **{**params, **query_kwargs})
+            state = {k: _over_queries(v, batch, vshape).contiguous()
+                     for k, v in state.items()}
+            s = torch.zeros(batch, dtype=torch.int32,
+                            device=data.vert_gid.device)
+            state, payload, active = self._applied(data, state, s)
+            return StepCarry(state, payload, active, s,
+                             self.init_stats(batch))
 
     def step_deliver(self, data, carry: StepCarry):
         return self.deliver(data, carry.payload, carry.active)
@@ -155,11 +172,13 @@ class SuperstepProgram:
         k = self.kernel
         state, payload, active, s, stats = carry
         acc, got, carry_v, aux = delivered
-        if k.carry_dtype is not None:
-            state = k.gather(state, acc, carry_v, got, s)
-        else:
-            state = k.gather(state, acc, got, s)
-        stats = self.update_stats(stats, data, active, aux)
+        with obs.span("engine.gather"):
+            if k.carry_dtype is not None:
+                state = k.gather(state, acc, carry_v, got, s)
+            else:
+                state = k.gather(state, acc, got, s)
+        with obs.span("engine.stats"):
+            stats = self.update_stats(stats, data, active, aux)
         return StepCarry(state, payload, active, s, stats)
 
     def step_exchange(self, data, carry: StepCarry) -> StepCarry:
@@ -186,11 +205,25 @@ class SuperstepProgram:
         after they are reduced across the mesh, so every process of a
         mesh takes the same number of supersteps."""
         carry = self.init_carry(data, params, query_kwargs, batch)
+        dispatches = 0
         while True:
-            live = self.alive(carry) & (carry.superstep < cap)
-            if not bool(live.any()):
-                return carry
-            carry = select_lanes(live, self.step(data, carry), carry)
+            with obs.span("engine.sync"):
+                live = self.alive(carry) & (carry.superstep < cap)
+                done = not bool(live.any())
+            if done:
+                break
+            with obs.span("engine.superstep"):
+                new = self.step(data, carry)
+                with obs.span("engine.freeze"):
+                    carry = select_lanes(live, new, carry)
+                # the step's own carry must not live on into the next
+                # step: it would raise the device's peak by a carry
+                del new
+            dispatches += 1
+        if self.lanes:
+            obs.counters.add("engine.lanes_scanned",
+                             dispatches * batch * self.lanes)
+        return carry
 
 
 def _sync(device: torch.device) -> None:
@@ -258,7 +291,8 @@ class LaneStepperBase:
         """(carry, packed) -> (carry, lane_active (W,) bool, supersteps (W,)
         int32): ONE device-to-host read of the packed probe."""
         carry, packed = out
-        host = packed.cpu().numpy()
+        with obs.span("engine.sync"):
+            host = packed.cpu().numpy()
         w = self.width
         if host.shape[0] > 2 * w:
             self.last_wire_words = float(host[2 * w])
@@ -335,12 +369,17 @@ class LaneStepper(LaneStepperBase):
 
         def admit_fn(d, carry, qkw, fresh):
             new = prog.init_carry(d, params, qkw, width)
-            c = select_lanes(fresh, new, carry)
+            with obs.span("engine.freeze"):
+                c = select_lanes(fresh, new, carry)
             return c, probe_of(c)
 
         def step_fn(d, carry, alive):
-            c = select_lanes(alive, prog.step(d, carry), carry)
-            return c, probe_of(c)
+            with obs.span("engine.superstep"):
+                new = prog.step(d, carry)
+                with obs.span("engine.freeze"):
+                    c = select_lanes(alive, new, carry)
+                del new
+                return c, probe_of(c)
 
         # profiled-mode phase programs: the same superstep as step_fn, cut
         # at the scatter / combine / apply boundaries so the host can time
@@ -352,7 +391,9 @@ class LaneStepper(LaneStepperBase):
             return prog.step_combine(d, carry, delivered)
 
         def apply_fn(d, carry, mid, alive):
-            return select_lanes(alive, prog.step_apply(d, mid), carry)
+            new = prog.step_apply(d, mid)
+            with obs.span("engine.freeze"):
+                return select_lanes(alive, new, carry)
 
         def fetch_lane_fn(carry, lane):
             return _map(lambda a: a[lane], carry)
@@ -360,7 +401,8 @@ class LaneStepper(LaneStepperBase):
         def restore_fn(carry, lane_carry, fresh):
             new = _map(lambda leaf: leaf.unsqueeze(0).expand(
                 (width,) + tuple(leaf.shape)), lane_carry)
-            c = select_lanes(fresh, new, carry)
+            with obs.span("engine.freeze"):
+                c = select_lanes(fresh, new, carry)
             return c, probe_of(c)
 
         self._init = self._program("init", init_fn)
@@ -394,6 +436,9 @@ class LaneStepper(LaneStepperBase):
                                         self._lanes(fresh)))
 
     def step(self, carry: StepCarry, alive: np.ndarray):
+        if self._prog.lanes:
+            obs.counters.add("engine.lanes_scanned",
+                             self.width * self._prog.lanes)
         if not self.profile:
             self.last_phases = None
             return self._unpack(self._step(self._dev(), carry,

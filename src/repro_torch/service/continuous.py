@@ -71,7 +71,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from ..core.stepper import LaneCheckpoint, LaneMeta, LaneTable
+from ..core import obs
+from ..core.stepper import LaneCheckpoint, LaneMeta, LaneTable, tree_nbytes
 from .batching import QueryClass, QueryRequest
 from .plans import StepperPlan
 
@@ -787,7 +788,10 @@ class ContinuousScheduler:
         done = cr.table.done_slots(cr.cap)
         if not done:
             return 0
-        host = cr.table.fetch()
+        with obs.span("service.retire_fetch"):
+            host = cr.table.fetch()
+        if self.stats is not None:
+            self.stats.record_carry_fetch(tree_nbytes(host))
         now = time.perf_counter()
         for i in done:
             meta = cr.table.release(i)

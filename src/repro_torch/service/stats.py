@@ -61,6 +61,7 @@ class ServiceStats:
     supersteps_total: int = 0
     messages_total: int = 0         # traversed edges (TEPS numerator)
     wire_words_total: float = 0.0   # exchange words moved across shards
+    carry_fetch_bytes_total: int = 0  # whole-carry fetches to the host
     busy_time_s: float = 0.0        # wall time spent EXECUTING dispatches
     compile_time_s: float = 0.0     # wall time spent tracing/compiling
 
@@ -324,6 +325,12 @@ class ServiceStats:
                 acc["completed"] += 1
                 acc["wire_words"] += wire_words
 
+    def record_carry_fetch(self, nbytes: int) -> None:
+        """One whole slot-array carry fetched to the host (the
+        continuous scheduler's retirement), ``nbytes`` on the host."""
+        with self._lock:
+            self.carry_fetch_bytes_total += int(nbytes)
+
     def record_exchange_overlap(self, class_key: str, exposed_s: float,
                                 total_s: float) -> None:
         """One profiled superstep's exchange walls: ``exposed_s`` is
@@ -428,6 +435,7 @@ class ServiceStats:
                 "supersteps_total": self.supersteps_total,
                 "messages_total": self.messages_total,
                 "wire_words_total": self.wire_words_total,
+                "carry_fetch_bytes_total": self.carry_fetch_bytes_total,
                 "busy_time_s": self.busy_time_s,
                 "compile_time_s": self.compile_time_s,
                 "qps": self.queries_completed / elapsed,

@@ -458,6 +458,9 @@ def test_compile_wall_excluded_from_busy_time():
         def record_retire(self, messages, latency_ms, class_key=None):
             pass
 
+        def record_carry_fetch(self, nbytes):
+            pass
+
         def record_deadline_miss(self, n=1):
             pass
 

@@ -101,7 +101,8 @@ def test_service_matches_jax(graph, scheduling):
     for (kernel, _, _), j, t in zip(stream, jf, tf):
         _assert_result(t.result(timeout=0), j.result(timeout=0), kernel)
     jsnap, tsnap = jsvc.stats_snapshot(), tsvc.stats_snapshot()
-    assert set(tsnap) == set(jsnap)
+    # the port's one key more: the whole-carry fetch bytes
+    assert set(tsnap) == set(jsnap) | {"carry_fetch_bytes_total"}
     assert set(tsnap["tenants"]) == set(jsnap["tenants"]) == {"t0", "t1"}
     for name in ("queries_completed", "messages_total", "supersteps_total",
                  "wire_words_total", "batches_dispatched", "plan_traces"):

@@ -22,6 +22,15 @@ def _per_query(flag: torch.Tensor, vshape) -> torch.Tensor:
     return flag.view(-1, 1, 1).expand((flag.shape[0],) + tuple(vshape))
 
 
+def _root(root, device) -> torch.Tensor:
+    """A query's roots as int32 on ``device``: the engine's (B, 1, 1)
+    tensor, or the factory's default, filled on the device (a copy from
+    the host could not be captured into a superstep graph's init)."""
+    if isinstance(root, int):
+        return torch.full((), root, dtype=torch.int32, device=device)
+    return torch.as_tensor(root, dtype=torch.int32, device=device)
+
+
 # ---------------------------------------------------------------------------
 # WCC — the paper's worked example (§3). Propagate the lowest vertex id.
 # ---------------------------------------------------------------------------
@@ -64,8 +73,7 @@ def bfs(root: int = 0) -> GasKernel:
     # ``root`` is a query parameter: the factory argument is the default,
     # and the engine passes a (B, 1, 1) tensor of roots for a batch.
     def init_state(vert_gid, out_deg, valid, *, root=root, **_):
-        root = torch.as_tensor(root, dtype=torch.int32,
-                               device=vert_gid.device)
+        root = _root(root, vert_gid.device)
         is_root = vert_gid == root
         return {
             "parent": torch.where(is_root, root, -1).to(torch.int32),
@@ -101,10 +109,11 @@ def bfs(root: int = 0) -> GasKernel:
 def pagerank(num_supersteps: int = 30, damping: float = 0.85) -> GasKernel:
     def init_state(vert_gid, out_deg, valid, *, num_vertices, **_):
         base = torch.where(valid, 1.0 / num_vertices, 0.0).to(torch.float32)
+        # filled on the device, as a superstep graph's init needs
         return {"score": base,
-                "num_vertices": torch.tensor(float(num_vertices),
-                                             dtype=torch.float32,
-                                             device=vert_gid.device)}
+                "num_vertices": torch.full((), float(num_vertices),
+                                           dtype=torch.float32,
+                                           device=vert_gid.device)}
 
     def apply(state, vert_gid, out_deg, superstep):
         # contribution = score / out_degree, divided at the sender (Pregel).
@@ -119,9 +128,11 @@ def pagerank(num_supersteps: int = 30, damping: float = 0.85) -> GasKernel:
         n = state["num_vertices"]
         acc = torch.where(got, combined, 0.0)
         # A true division: torch's `scalar / tensor` multiplies by the
-        # reciprocal and rounds differently from JAX's `(1 - d) / n`.
-        base = torch.div(torch.tensor(1.0 - damping, dtype=torch.float32,
-                                      device=n.device), n)
+        # reciprocal and rounds differently from JAX's `(1 - d) / n`. The
+        # numerator is filled on the device: a copy from the host could
+        # not be captured into the engine's superstep graph.
+        base = torch.div(torch.full((), 1.0 - damping, dtype=torch.float32,
+                                    device=n.device), n)
         score = base.view(-1, 1, 1) + damping * acc
         return {"score": score.to(torch.float32), "num_vertices": n}
 
@@ -139,8 +150,7 @@ def pagerank(num_supersteps: int = 30, damping: float = 0.85) -> GasKernel:
 
 def sssp(root: int = 0) -> GasKernel:
     def init_state(vert_gid, out_deg, valid, *, root=root, **_):
-        root = torch.as_tensor(root, dtype=torch.int32,
-                               device=vert_gid.device)
+        root = _root(root, vert_gid.device)
         is_root = vert_gid == root
         dist = torch.where(is_root, 0.0, float("inf")).to(torch.float32)
         return {

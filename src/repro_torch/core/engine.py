@@ -25,6 +25,16 @@ the graph store's spill tier) and promoted back (:meth:`Engine.upload`);
 an offloaded engine stages its data to its device for each call, so it
 never computes anywhere else. :attr:`Engine.traces` counts the first run
 of each program at each shape, where JAX counts compilations.
+
+On the card, with its data resident, :meth:`Engine.run` and
+:meth:`Engine.run_batch` run from CUDA graphs of the init and of one
+superstep, one pair per batch size and set of query parameters
+(:class:`~repro_torch.core.stepper.SuperstepGraph`); a pair holds a carry
+between calls, and every pair of the process keeps its intermediates in
+one pool, the size of the largest superstep's. On the CPU, while
+offloaded, or while another call holds that graph, a call runs the eager
+loop, with bit-identical results, and so does :meth:`Engine.run_eager`,
+which holds nothing between calls: the service's plans call it.
 """
 from __future__ import annotations
 
@@ -43,7 +53,8 @@ from ..kernels.layout import DeviceLayout
 from . import obs
 from .gas import GasKernel
 from .partition import PartitionedGraph
-from .stepper import LaneStepper, SuperstepProgram, tree_map, tree_nbytes
+from .stepper import (LaneStepper, SuperstepGraph, SuperstepProgram,
+                      tree_map, tree_nbytes)
 
 __all__ = ["Engine", "EngineResult", "batch_size", "collect",
            "query_tensors", "resolve_device"]
@@ -160,6 +171,10 @@ class Engine:
         self._device_resident = True
         self._prog = self._make_program()
         self._steppers: Dict[int, LaneStepper] = {}
+        # run/run_batch on the card: one superstep graph per batch size
+        # and set of query parameters
+        self._graphs: Dict[tuple, SuperstepGraph] = {}
+        self._graphs_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     def _tensor(self, a, dtype) -> torch.Tensor:
@@ -439,8 +454,10 @@ class Engine:
         return time.perf_counter() - t0
 
     def _rebind_data(self, data, *, resident: bool) -> None:
-        self._data = data
-        self._device_resident = resident
+        with self._graphs_lock:
+            self._data = data
+            self._device_resident = resident
+            self._graphs = {}   # they hold the old data's addresses
         for st in list(self._steppers.values()):
             st.bind_data(data)
 
@@ -487,10 +504,35 @@ class Engine:
             raw_state=state_q,
         )
 
-    def _run(self, max_supersteps, qkw, batch) -> "list[EngineResult]":
+    def _graph(self, batch: int, qkw) -> Optional[SuperstepGraph]:
+        """The superstep graph at ``batch`` for the query parameters
+        ``qkw`` names, its lock taken for this call; None where the call
+        runs the eager loop: on the CPU, while the data is offloaded (it
+        is staged anew each call), or while another call holds the
+        graph."""
+        key = (batch,) + tuple(sorted(qkw))
+        with self._graphs_lock:
+            if self.device.type != "cuda" or not self._device_resident:
+                return None
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = SuperstepGraph(self._prog, self._data, self.params,
+                                       batch, self.device)
+                self._graphs[key] = graph
+        return graph if graph.lock.acquire(blocking=False) else None
+
+    def _run(self, max_supersteps, qkw, batch,
+             graph: Optional[SuperstepGraph]) -> "list[EngineResult]":
         cap = max_supersteps or self.kernel.max_supersteps or HARD_SUPERSTEP_CAP
-        carry = self._prog.run_loop(self._device_data(), cap, self.params,
-                                    qkw, batch)
+        if graph is None:
+            return self._collect(self._prog.run_loop(
+                self._device_data(), cap, self.params, qkw, batch), batch)
+        try:
+            return self._collect(graph.run_loop(cap, qkw), batch)
+        finally:
+            graph.lock.release()
+
+    def _collect(self, carry, batch) -> "list[EngineResult]":
         with obs.span("engine.collect"):
             state = state_to_numpy(carry.state)
             steps = carry.superstep.cpu().numpy()
@@ -498,15 +540,22 @@ class Engine:
             return [self._result(state, steps, stats, q)
                     for q in range(batch)]
 
+    def _call(self, entry: str, max_supersteps, query,
+              graphed: bool) -> "list[EngineResult]":
+        with obs.span("engine.call"):
+            qkw = query_tensors(self.kernel, query, self.device,
+                                batch=entry == "run_batch")
+            batch = batch_size(qkw) if qkw else 1
+            shape = (entry, batch) if entry == "run_batch" else (entry,)
+            self._note_trace(shape + (tuple(sorted(qkw)),))
+            graph = self._graph(batch, qkw) if graphed else None
+            return self._run(max_supersteps, qkw, batch, graph)
+
     def run(self, max_supersteps: Optional[int] = None,
             **query_kwargs) -> EngineResult:
         """Single query. ``query_kwargs`` (e.g. ``root=7``) override the
         kernel's defaults in ``init_state``."""
-        with obs.span("engine.call"):
-            qkw = query_tensors(self.kernel, query_kwargs, self.device,
-                                batch=False)
-            self._note_trace(("run", tuple(sorted(qkw))))
-            return self._run(max_supersteps, qkw, 1)[0]
+        return self._call("run", max_supersteps, query_kwargs, True)[0]
 
     def run_batch(self, max_supersteps: Optional[int] = None,
                   **query_arrays) -> "list[EngineResult]":
@@ -514,12 +563,21 @@ class Engine:
         maps the kernel's ``query_params`` (e.g. ``root``) to (B,) arrays.
         Returns one :class:`EngineResult` per query, bit-identical to B
         sequential :meth:`run` calls."""
-        with obs.span("engine.call"):
-            qkw = query_tensors(self.kernel, query_arrays, self.device,
-                                batch=True)
-            batch = batch_size(qkw)
-            self._note_trace(("run_batch", batch, tuple(sorted(qkw))))
-            return self._run(max_supersteps, qkw, batch)
+        return self._call("run_batch", max_supersteps, query_arrays, True)
+
+    def run_eager(self, entry: str, max_supersteps: Optional[int] = None,
+                  **query) -> "list[EngineResult]":
+        """:meth:`run` (as a list of one) or :meth:`run_batch`, by
+        ``entry``, on the eager loop, with the same results and trace
+        counts: a call holds its carry and its intermediates only while
+        it runs, where a graph pair holds a carry, and a share in the
+        graphs' pool, from its capture on. The service's plans call it,
+        since the graph store's memory budget charges an engine its data
+        alone."""
+        if entry not in ("run", "run_batch"):
+            raise ValueError(f"entry must be 'run' or 'run_batch', "
+                             f"got {entry!r}")
+        return self._call(entry, max_supersteps, query, False)
 
     # ------------------------------------------------------------------
     def make_stepper(self, width: int) -> LaneStepper:

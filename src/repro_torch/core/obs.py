@@ -14,6 +14,11 @@ to once per call or per step dispatch (never once per phase):
                         step dispatch
   engine.messages       the ``EngineResult.messages`` of every result
                         the engine built
+  engine.supersteps     step dispatches of the engines' superstep
+                        loops, eager or replayed from a CUDA graph
+                        (not a ``LaneStepper``'s steps)
+  engine.graph_replays  those of them replayed from a CUDA graph
+  engine.graph_captures CUDA graphs of a superstep captured
 
 Span names (``engine.*``, ``service.*``) are fixed: PERF.md and the
 benchmark's readers use them.

@@ -8,7 +8,8 @@ JAX runs the loop as one ``lax.while_loop`` (vmapped for a batch); here
 of the termination bits per superstep, and freezes finished queries with
 :func:`select_lanes` — the explicit form of the freeze ``vmap`` of a
 ``while_loop`` performs — so a batched query is bit-identical to a solo
-run of it.
+run of it. On the card, :class:`SuperstepGraph` runs the same loop from
+CUDA graphs of the init and of one superstep over static carry buffers.
 
 :class:`LaneStepper` is the host-drivable W-lane handle over the same
 program that the service's continuous scheduler drives (admit / one
@@ -24,6 +25,7 @@ packed read.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Tuple)
@@ -31,10 +33,12 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from ..kernels import edge_gather
 from . import obs
 
-__all__ = ["StepCarry", "SuperstepProgram", "LaneStepper",
-           "LaneStepperBase", "select_lanes", "tree_map", "tree_nbytes",
+__all__ = ["StepCarry", "SuperstepProgram", "SuperstepGraph", "LaneStepper",
+           "LaneStepperBase", "select_lanes", "select_lanes_into",
+           "tree_map", "tree_nbytes",
            "LaneMeta", "LaneCheckpoint", "LaneTable", "lane_dtype",
            "PRIORITY_BOOST_S"]
 
@@ -97,6 +101,14 @@ def select_lanes(mask: torch.Tensor, new, old):
     def sel(n, o):
         return torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o)
     return _map(sel, new, old)
+
+
+def select_lanes_into(mask: torch.Tensor, new, carry) -> None:
+    """:func:`select_lanes` written into ``carry``'s own tensors: queries
+    where ``mask`` is True take ``new``, the rest keep what they hold."""
+    def sel(n, o):
+        torch.where(mask.view((-1,) + (1,) * (o.dim() - 1)), n, o, out=o)
+    _map(sel, new, carry)
 
 
 def _over_queries(x: torch.Tensor, batch: int, vshape) -> torch.Tensor:
@@ -220,10 +232,153 @@ class SuperstepProgram:
                 # step: it would raise the device's peak by a carry
                 del new
             dispatches += 1
+        self.count(dispatches, batch)
+        return carry
+
+    def count(self, dispatches: int, batch: int) -> None:
+        """Add a loop's step dispatches to ``engine.supersteps`` and the
+        lanes they scanned to ``engine.lanes_scanned``."""
+        obs.counters.add("engine.supersteps", dispatches)
         if self.lanes:
             obs.counters.add("engine.lanes_scanned",
                              dispatches * batch * self.lanes)
-        return carry
+
+
+class SuperstepGraph:
+    """The loop of :meth:`SuperstepProgram.run_loop` at one batch size and
+    one set of query parameters, run from two CUDA graphs.
+
+    Both update one set of static carry buffers in place. The init graph
+    writes :meth:`SuperstepProgram.init_carry` of the static query
+    tensors into them, and the live bits; the step graph holds one
+    superstep: :meth:`SuperstepProgram.step`, the freeze into the
+    buffers, the next superstep's live bits. Either copies the live bits
+    to a pinned host buffer. Each call copies its query tensors in, fills
+    the superstep cap (a device scalar) and replays the init graph; the
+    host then waits on an event (``engine.sync``) and reads the live bits
+    once a superstep, as the eager loop does, so states, supersteps and
+    stats are bit-identical to it. A call thus allocates no carry of its
+    own on the device. A graph pair holds its carry, and its
+    intermediates lie in the one pool that all superstep graphs of the
+    process share (:func:`_capture`). The first call runs the init and its
+    first superstep eagerly (the warm-up), and both graphs are captured
+    after it. They hold the addresses of ``data``, so an engine drops
+    them when it rebinds its data. The kernel's functions read nothing
+    back to the host, as under the JAX engine's ``jit``.
+
+    ``lock`` is held by the call that runs the loop: the buffers are its
+    until it has read its results from them."""
+
+    def __init__(self, prog: SuperstepProgram, data, params: Dict[str, Any],
+                 batch: int, device: torch.device):
+        self.prog, self.data, self.batch = prog, data, batch
+        self.params = dict(params)
+        self.lock = threading.Lock()
+        self.graph = self.init_graph = None
+        self.carry: Optional[StepCarry] = None
+        self.query: Optional[Dict[str, torch.Tensor]] = None
+        cuda = device.type == "cuda"
+        self.cap = torch.zeros((), dtype=torch.int32, device=device)
+        self.live = torch.zeros(batch, dtype=torch.bool, device=device)
+        self.live_host = torch.zeros(batch, dtype=torch.bool,
+                                     pin_memory=cuda)
+        self.ready = torch.cuda.Event() if cuda else None
+        self.launches = (0, 0)       # K1 and K2 launches a replay makes
+
+    def _live_bits(self) -> None:
+        c = self.carry
+        torch.bitwise_and(self.prog.alive(c), c.superstep < self.cap,
+                          out=self.live)
+        self.live_host.copy_(self.live, non_blocking=True)
+
+    def _init(self) -> None:
+        init = self.prog.init_carry(self.data, self.params, self.query,
+                                    self.batch)
+        if self.carry is None:
+            self.carry = _map(lambda t: torch.empty(
+                t.shape, dtype=t.dtype, device=t.device), init)
+        _map(lambda dst, src: dst.copy_(src), self.carry, init)
+        del init
+        self._live_bits()
+
+    def _body(self) -> None:
+        new = self.prog.step(self.data, self.carry)
+        with obs.span("engine.freeze"):
+            select_lanes_into(self.live, new, self.carry)
+        del new
+        self._live_bits()
+
+    def _capture(self) -> None:
+        k1, k2 = edge_gather.recorded()
+        self.graph, self.init_graph = _capture(self._body, self._init)
+        n1, n2 = edge_gather.recorded()
+        self.launches = (n1 - k1, n2 - k2)
+        obs.counters.add("engine.graph_captures", 1)
+
+    def run_loop(self, cap: int,
+                 query_kwargs: Dict[str, torch.Tensor]) -> StepCarry:
+        """Run every query to quiescence (or ``cap`` supersteps); returns
+        the static carry, which the caller reads before it releases
+        ``lock``."""
+        if self.query is None:
+            self.query = {k: v.clone() for k, v in query_kwargs.items()}
+        else:
+            for k, v in query_kwargs.items():
+                self.query[k].copy_(v)
+        self.cap.fill_(min(cap, torch.iinfo(torch.int32).max))
+        if self.init_graph is None:
+            self._init()
+        else:
+            self.init_graph.replay()
+        dispatches = replays = 0
+        while True:
+            with obs.span("engine.sync"):
+                if self.ready is not None:
+                    self.ready.record()
+                    self.ready.synchronize()
+                done = not self.live_host.numpy().any()
+            if done:
+                break
+            with obs.span("engine.superstep"):
+                if self.graph is None:
+                    self._body()
+                    self._capture()
+                else:
+                    self.graph.replay()
+                    edge_gather.add_launches(*self.launches)
+                    replays += 1
+            dispatches += 1
+        self.prog.count(dispatches, self.batch)
+        obs.counters.add("engine.graph_replays", replays)
+        return self.carry
+
+
+_CAPTURE_LOCK = threading.Lock()
+# The one pool that every superstep graph of the process captures into,
+# per device: a graph's intermediates are dead when its replay ends (the
+# carry lives outside the pool), and replays run one after another on
+# the default stream, so the pool holds the largest superstep's
+# intermediates, not the sum over engines and batch sizes.
+_POOLS: Dict[int, Any] = {}
+
+
+def _capture(*bodies: Callable[[], None]) -> "list[torch.cuda.CUDAGraph]":
+    """Each body's work on the card as a CUDA graph, captured on a side
+    stream into the process's pool (:data:`_POOLS`); no body runs a
+    kernel here. One capture at a time in the process: other threads'
+    eager work on the card goes on beside it."""
+    graphs = []
+    with _CAPTURE_LOCK:
+        device = torch.cuda.current_device()
+        if device not in _POOLS:
+            _POOLS[device] = torch.cuda.graph_pool_handle()
+        for body in bodies:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=_POOLS[device],
+                                  capture_error_mode="thread_local"):
+                body()
+            graphs.append(graph)
+    return graphs
 
 
 def _sync(device: torch.device) -> None:

@@ -23,11 +23,18 @@ per-shard layouts (the shard engine's ``segment_combine_windows`` calls),
 in one launch of the same kernel, counted in :data:`windows_launches`,
 with :func:`segment_combine_windows_plain` beside it. K1 launches it as a
 stack of one shard.
+
+A call made while its stream is being captured into a CUDA graph
+launches nothing then: it is counted in the capturing thread's
+:func:`recorded`, and the graph adds what it recorded to both counts at
+each replay (:func:`add_launches`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+from typing import Tuple
 
 import torch
 
@@ -35,14 +42,18 @@ from . import _build, ref
 from .layout import WorkList
 from .ref import identity_for
 
-__all__ = ["identity_for", "launches", "segment_combine",
-           "segment_combine_plain", "segment_combine_windows",
-           "segment_combine_windows_plain", "windows_launches"]
+__all__ = ["add_launches", "identity_for", "launches", "recorded",
+           "segment_combine", "segment_combine_plain",
+           "segment_combine_windows", "segment_combine_windows_plain",
+           "windows_launches"]
 
 # Kernel launches made by :func:`segment_combine` (CUDA tensors only).
 launches = 0
 # Kernel launches made by :func:`segment_combine_windows` (CUDA only).
 windows_launches = 0
+# Per thread: the K1 and K2 calls it recorded into CUDA graph captures.
+_recorded = threading.local()
+_count_lock = threading.Lock()
 
 _COMBINER_CODE = {"add": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1}
@@ -94,7 +105,6 @@ def segment_combine(window_id: torch.Tensor, tile_start: torch.Tensor,
     layout ``(window_id, tile_start, rel)``; returns ``vals.shape[:-1] +
     (num_segments,)``. ``work`` is the layout's work list, which the
     kernel path needs."""
-    global launches
     _check(window_id, tile_start, rel, vals, combiner, tile_e, tile_r,
            num_segments)
     if vals.device.type == "cpu":
@@ -103,9 +113,8 @@ def segment_combine(window_id: torch.Tensor, tile_start: torch.Tensor,
                                      num_segments=num_segments)
     if vals.device.type != "cuda":
         raise ValueError(f"no segment_combine for device {vals.device}")
-    out, launched = _launch(work, rel.view(1, -1), vals.unsqueeze(-2),
-                            combiner, tile_e, tile_r, num_segments)
-    launches += launched
+    out = _launch("k1", work, rel.view(1, -1), vals.unsqueeze(-2), combiner,
+                  tile_e, tile_r, num_segments)
     return out.squeeze(-2)
 
 
@@ -179,7 +188,6 @@ def segment_combine_windows(tile_start: torch.Tensor, rel: torch.Tensor,
     stacked layouts ``(tile_start (S, n_windows+1), rel (S, lanes))``;
     returns ``vals.shape[:-1] + (num_segments,)``. ``work`` is the
     stack's work list, which the kernel path needs."""
-    global windows_launches
     _check_windows(tile_start, rel, vals, combiner, tile_e, tile_r,
                    num_segments)
     if vals.device.type == "cpu":
@@ -189,16 +197,38 @@ def segment_combine_windows(tile_start: torch.Tensor, rel: torch.Tensor,
     if vals.device.type != "cuda":
         raise ValueError(f"no segment_combine_windows for device "
                          f"{vals.device}")
-    out, launched = _launch(work, rel, vals, combiner, tile_e, tile_r,
-                            num_segments)
-    windows_launches += launched
-    return out
+    return _launch("k2", work, rel, vals, combiner, tile_e, tile_r,
+                   num_segments)
 
 
-def _launch(work, rel, vals, combiner, tile_e, tile_r, num_segments):
+def recorded() -> Tuple[int, int]:
+    """The K1 and K2 calls this thread has recorded into CUDA graph
+    captures, in all."""
+    return getattr(_recorded, "k1", 0), getattr(_recorded, "k2", 0)
+
+
+def add_launches(k1: int, k2: int) -> None:
+    """Count ``k1`` K1 and ``k2`` K2 launches made by a graph's replay."""
+    global launches, windows_launches
+    with _count_lock:
+        launches += k1
+        windows_launches += k2
+
+
+def _count(kind: str) -> None:
+    """Count one launch of ``kind`` ("k1" or "k2") on the current stream:
+    in :data:`launches` / :data:`windows_launches`, or in this thread's
+    :func:`recorded` while the stream is being captured."""
+    if torch.cuda.is_current_stream_capturing():
+        setattr(_recorded, kind, getattr(_recorded, kind, 0) + 1)
+    else:
+        add_launches(kind == "k1", kind == "k2")
+
+
+def _launch(kind, work, rel, vals, combiner, tile_e, tile_r, num_segments):
     """Launch the kernel over ``rel`` (S, lanes) and ``vals`` (..., S,
-    lanes). Returns the (..., S, num_segments) output and whether the
-    kernel was launched (not for an empty batch or no segment)."""
+    lanes), counted as ``kind`` (not for an empty batch or no segment).
+    Returns the (..., S, num_segments) output."""
     if not isinstance(work, WorkList):
         raise ValueError("the CUDA combine needs the layout's work list "
                          "(DeviceLayout.work / layout.stacked_layout)")
@@ -220,7 +250,7 @@ def _launch(work, rel, vals, combiner, tile_e, tile_r, num_segments):
     out = torch.empty(vals.shape[:-1] + (num_segments,), dtype=vals.dtype,
                       device=vals.device)
     if batch == 0 or num_segments == 0:
-        return out, False
+        return out
     if rel.data_ptr() % 16 or vals.data_ptr() % 16:
         raise ValueError("rel and vals must be 16-byte aligned")
     scratch = torch.empty((work.n_slots, batch, tile_r), dtype=vals.dtype,
@@ -233,7 +263,8 @@ def _launch(work, rel, vals, combiner, tile_e, tile_r, num_segments):
             out.data_ptr(), n_shards, batch, lanes, num_segments, tile_e,
             tile_r, _COMBINER_CODE[combiner], _DTYPE_CODE[vals.dtype],
             stream)
-    if err != 0:
-        raise RuntimeError(f"segment_combine kernel launch failed: "
-                           f"cudaError {err}")
-    return out, True
+        if err != 0:
+            raise RuntimeError(f"segment_combine kernel launch failed: "
+                               f"cudaError {err}")
+        _count(kind)
+    return out

@@ -133,16 +133,27 @@ class CompiledPlan:
         # normalized (overlap implies exchange) before the cache lookup
         ov = {"overlap": True} if self.key.overlap else {}
         if self.key.batch_size == 1:
-            scalars = {k: np.asarray(v).reshape(()) for k, v
-                       in query_arrays.items()}
-            return [self.engine.run(max_supersteps, **ov, **scalars)]
-        for k, v in query_arrays.items():
-            n = np.asarray(v).shape[0]
-            if n != self.key.batch_size:
-                raise ValueError(
-                    f"plan expects batch {self.key.batch_size}, got {n} "
-                    f"for {k!r}")
-        return self.engine.run_batch(max_supersteps, **ov, **query_arrays)
+            entry = "run"
+            query_arrays = {k: np.asarray(v).reshape(()) for k, v
+                            in query_arrays.items()}
+        else:
+            entry = "run_batch"
+            for k, v in query_arrays.items():
+                n = np.asarray(v).shape[0]
+                if n != self.key.batch_size:
+                    raise ValueError(
+                        f"plan expects batch {self.key.batch_size}, got "
+                        f"{n} for {k!r}")
+        if isinstance(self.engine, Engine):
+            # the eager loop: the store's budget charges the engine its
+            # data alone, and a superstep graph would hold a carry and a
+            # superstep's intermediates on the card from one call to the
+            # next, for each bucket
+            return self.engine.run_eager(entry, max_supersteps,
+                                         **query_arrays)
+        out = getattr(self.engine, entry)(max_supersteps, **ov,
+                                          **query_arrays)
+        return out if entry == "run_batch" else [out]
 
     def warmup(self) -> "CompiledPlan":
         """Trace + compile now (first root of the graph) so the first real

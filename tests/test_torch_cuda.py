@@ -1,7 +1,10 @@
 """The port on the card: the CUDA segment-combine kernels (K1, and K2 over
 stacked per-shard layouts) against their plain versions, the engines'
-kernel paths against their oracle paths, and the query service on the
-card: its answers, an offloaded engine's dispatch (still K1 on the card)
+kernel paths against their oracle paths, the one-device engine's
+superstep graph (bit-identical to its eager loop, its counters, a
+recapture after upload, two threads on one engine, its peak and held
+memory), and the query service on the card: its answers (on the eager
+loop), an offloaded engine's dispatch (still K1 on the card)
 and bucketed and continuous dispatch on one engine at the same time; the
 shard engine's five exchanges in both schedules, its lane stepper, an
 offloaded shard engine (still K2 on the card) and a shard class of the
@@ -15,7 +18,11 @@ Marked ``gpu``; each test decides inside itself whether there is a card
 and skips without one. The file imports no JAX, so it runs on a machine
 that has only PyTorch: ``python -m pytest -m gpu tests/test_torch_cuda.py``.
 """
+import os
+import subprocess
+import sys
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +30,7 @@ import torch
 
 from repro_torch.core import algorithms as TA
 from repro_torch.core import graph as TG
+from repro_torch.core import obs
 from repro_torch.core import partition as TPT
 from repro_torch.core.engine import Engine
 from repro_torch.core.engine_shardmap import EXCHANGES, ShardEngine
@@ -42,6 +50,7 @@ from repro_torch.service import GraphQueryService, QueryRequest
 # the cores that parallel test workers share.
 torch.set_num_threads(1)
 
+SRC = Path(__file__).resolve().parents[1] / "src"
 COMBINER_DTYPES = [(c, d) for c in ("add", "min", "max")
                    for d in (np.float32, np.int32)]
 SHAPES = [(0, 16, 32, 16), (1, 1, 32, 16), (500, 64, 64, 32),
@@ -191,6 +200,225 @@ def test_cuda_engine_matches_ref(name):
             np.testing.assert_array_equal(got.state[k], want.state[k])
 
 
+def _engine_pg():
+    g = TG.rmat(10, 8, seed=3, weighted=True).symmetrized()
+    return TPT.partition_graph(g, 4, pad_multiple=16)
+
+
+GRAPH_COUNTERS = ("engine.supersteps", "engine.graph_replays",
+                  "engine.graph_captures")
+ROOTS = np.array([3, 200, 77, 5, 901, 12, 640, 33])
+
+
+def _graph_counts():
+    snap = obs.counters.snapshot()
+    return {k: snap.get(k, 0) for k in GRAPH_COUNTERS}
+
+
+def _grew(before):
+    now = _graph_counts()
+    return tuple(now[k] - before[k] for k in GRAPH_COUNTERS)
+
+
+def _call(eng, entry, batch, cap=None):
+    if entry == "run":
+        kw = {"root": int(ROOTS[0])} if eng.kernel.query_params else {}
+        return [eng.run(cap, **kw)]
+    return eng.run_batch(cap, root=ROOTS[:batch])
+
+
+def _same_bits(got, want, name):
+    """Equal bits, but for PageRank's ranks: K1's float32 add rounds its
+    last bit in the order its atomics land, which varies from launch to
+    launch (``csrc/segment_combine.cu``, "Determinism")."""
+    assert (got.supersteps, got.messages, got.comm) == (
+        want.supersteps, want.messages, want.comm)
+    assert set(got.state) == set(want.state)
+    for k in want.state:
+        assert got.state[k].dtype == want.state[k].dtype
+        if name == "pagerank" and k == "score":
+            np.testing.assert_allclose(got.state[k], want.state[k],
+                                       rtol=1e-5, atol=0)
+        else:
+            np.testing.assert_array_equal(got.state[k], want.state[k])
+
+
+# run at B = 1 for every kernel, run_batch at B = 1, 2, 8 for those that
+# take a per-query array
+GRAPH_CASES = ([(n, "run", 1) for n in ("bfs", "wcc", "sssp", "pagerank",
+                                        "degree")]
+               + [(n, "run_batch", b) for n in ("bfs", "sssp")
+                  for b in (1, 2, 8)])
+CAPS = (None, 2, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,entry,batch", GRAPH_CASES)
+def test_cuda_graphed_engine_matches_ref_and_eager(name, entry, batch):
+    """run / run_batch on the card replay one superstep graph: each call
+    (to quiescence, stopped at 2 supersteps, again to quiescence) answers
+    as the CPU oracle engine does, and as the eager loop on the card (the
+    same engine offloaded) bit for bit (:func:`_same_bits`). K1 launches as many times a
+    superstep as before; the first superstep runs eagerly and captures,
+    every later one is a replay; the eager loop replays nothing."""
+    _need_card()
+    pg = _engine_pg()
+    kernel = TA.ALGORITHMS[name]()
+    ref = Engine(kernel, pg, backend="ref", device="cpu")
+    eng = Engine(kernel, pg, device="cuda")
+    per_step = 2 if kernel.carry_dtype is not None else 1
+    graphed = []
+    for i, cap in enumerate(CAPS):
+        before, k1 = _graph_counts(), edge_gather.launches
+        got = _call(eng, entry, batch, cap)
+        steps = max(r.supersteps for r in got)
+        assert steps <= (cap or steps) and steps > 0
+        assert edge_gather.launches - k1 == per_step * steps
+        assert _grew(before) == (steps, steps - (i == 0), int(i == 0))
+        for a, b in zip(got, _call(ref, entry, batch, cap)):
+            _same_as(a, b, name)
+        graphed.append(got)
+    eng.offload()
+    for got, cap in zip(graphed, CAPS):
+        before, k1 = _graph_counts(), edge_gather.launches
+        eager = _call(eng, entry, batch, cap)
+        steps = max(r.supersteps for r in eager)
+        assert edge_gather.launches - k1 == per_step * steps
+        assert _grew(before) == (steps, 0, 0)
+        for a, b in zip(got, eager):
+            _same_bits(a, b, name)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_recaptured_after_upload():
+    """offload drops the engine's graphs (they hold the data's old
+    addresses); after upload the next call captures anew, and every call
+    gives the same bits."""
+    _need_card()
+    eng = Engine(TA.sssp(), _engine_pg())
+    first = eng.run_batch(root=ROOTS[:2])
+    assert set(eng._graphs) == {(2, "root")}
+    eng.offload()
+    assert not eng._graphs
+    eager = eng.run_batch(root=ROOTS[:2])
+    eng.upload()
+    before = _graph_counts()
+    again = eng.run_batch(root=ROOTS[:2])
+    steps = max(r.supersteps for r in again)
+    assert _grew(before) == (steps, steps - 1, 1)
+    for a, b, c in zip(first, eager, again):
+        _same_bits(a, b, "sssp")
+        _same_bits(a, c, "sssp")
+
+
+@pytest.mark.gpu
+def test_cuda_two_threads_run_batch_on_one_engine():
+    """Twelve threads (more than the machine's cores) call run_batch on
+    one engine at once, from its first call on, with a short switch
+    interval: one at a time holds the graph (the first also captures
+    it), the others run the eager loop meanwhile; every answer equals
+    the oracle's, exactly one graph is captured, and K1's launch count
+    loses no update."""
+    _need_card()
+    pg = _engine_pg()
+    eng = Engine(TA.sssp(), pg)
+    ref = Engine(TA.sssp(), pg, backend="ref", device="cpu")
+    n = 12
+    roots = [np.roll(ROOTS, i) for i in range(n)]
+    want = [ref.run_batch(root=r) for r in roots]
+    barrier = threading.Barrier(n)
+    out, errors = {i: [] for i in range(n)}, []
+
+    def drive(i):
+        try:
+            barrier.wait()
+            for _ in range(3):
+                out[i].append(eng.run_batch(root=roots[i]))
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    before, k1 = _graph_counts(), edge_gather.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=drive, args=(i,))
+                   for i in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    supersteps, replays, captures = _grew(before)
+    assert captures == 1 and 0 < replays < supersteps
+    assert edge_gather.launches - k1 == 2 * supersteps
+    for i in range(n):
+        assert len(out[i]) == 3
+        for got in out[i]:
+            for a, b in zip(got, want[i]):
+                _same_as(a, b, "sssp")
+
+
+_PEAK = """
+import sys
+import numpy as np
+import torch
+from repro_torch.core import algorithms as TA, graph as TG, obs
+from repro_torch.core import partition as TPT
+from repro_torch.core.engine import Engine
+g = TG.rmat(18, 8, seed=3, weighted=True).symmetrized()
+eng = Engine(TA.sssp(), TPT.partition_graph(g, 4, pad_multiple=16))
+roots = np.array([3, 200, 77, 5, 901, 12, 640, 33])
+batches = (8, 2, 1)
+held = ([eng._graph(b, {"root": None}) for b in batches]
+        if sys.argv[1] == "eager" else None)
+torch.cuda.synchronize()
+torch.cuda.empty_cache()
+torch.cuda.reset_peak_memory_stats()
+base = torch.cuda.memory_allocated()
+base_reserved = torch.cuda.memory_reserved()
+for b in batches:
+    for _ in range(2):
+        eng.run_batch(root=roots[:b])
+    torch.cuda.synchronize()
+    if b == batches[0]:
+        first_peak_reserved = torch.cuda.max_memory_reserved() - base_reserved
+print(torch.cuda.max_memory_allocated() - base,
+      torch.cuda.memory_reserved() - base_reserved, first_peak_reserved,
+      obs.counters.snapshot().get("engine.graph_captures", 0))
+"""
+
+
+@pytest.mark.gpu
+def test_cuda_graphed_peak_memory_within_eager():
+    """Graphed run_batch calls at three batch sizes (captures included)
+    take no more device memory than the eager loop of a twin engine, plus
+    1 %: at their peak allocation; at the peak reservation of the first
+    batch size's calls (the capture's pool takes the warm-up's place);
+    and held after all the calls, when the graphs' pool and static
+    carries stay reserved and the eager loop's blocks stay cached. Each
+    graph pair updates one set of carry buffers in place, a call
+    allocates no carry of its own, and the three pairs share one pool.
+    A later batch size's first call warms up eagerly beside the held
+    pool, so the peak reservation over all three is not held to the
+    twin's (PERF.md). Each side runs in a process of its own, from an
+    emptied cache after the engine's build."""
+    _need_card()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    read = {}
+    for side in ("graphed", "eager"):
+        out = subprocess.run([sys.executable, "-c", _PEAK, side],
+                             capture_output=True, text=True, env=env,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        *read[side], captures = map(int, out.stdout.split())
+        assert captures == (3 if side == "graphed" else 0)
+    for graphed, eager in zip(read["graphed"], read["eager"]):
+        assert 0 < graphed <= 1.01 * eager, read
+
+
 # (edges of each shard, segments, tile_e, tile_r): an empty shard, windows
 # that own no tile, hub rows spanning many tiles, shards of unequal length
 STACKS = [((300, 0, 45, 1), 130, 32, 16), ((0, 500, 30, 2000), 2000, 64, 32),
@@ -287,6 +515,7 @@ def test_cuda_service_matches_engine(scheduling):
     for k in ("wcc", "pagerank", "degree"):
         svc.warm("g", k, batch_sizes=[1])
     traces = svc.stats_snapshot()["plan_traces"]
+    graphs = _graph_counts()
     asked = [(k, {"root": r}) for k in ("bfs", "sssp")
              for r in range(0, g.num_vertices, 47)]
     asked += [(k, {}) for k in ("wcc", "pagerank", "degree")]
@@ -300,6 +529,8 @@ def test_cuda_service_matches_engine(scheduling):
     for (k, kw), f in zip(asked, futs):
         _same_as(f.result(timeout=0), ref[k].run(**kw), k)
     assert svc.stats_snapshot()["plan_traces"] == traces
+    # the service's plans and steppers run the eager loop
+    assert _grew(graphs)[1:] == (0, 0)
 
 
 @pytest.mark.gpu

@@ -16,6 +16,7 @@ counts the bytes of each whole-carry fetch.
 """
 import collections
 import contextlib
+import types
 import weakref
 
 import numpy as np
@@ -26,7 +27,10 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.core import algorithms as TA
 from repro_torch.core import graph as TG
 from repro_torch.core import obs
-from repro_torch.core.engine import Engine
+from repro_torch.core import stepper
+from repro_torch.core.engine import Engine, query_tensors
+from repro_torch.core.engine_shardmap import ShardEngine
+from repro_torch.core.mesh import LocalMesh
 from repro_torch.core.partition import partition_graph
 from repro_torch.core.stepper import tree_nbytes
 from repro_torch.service import GraphQueryService, QueryRequest
@@ -144,7 +148,150 @@ def test_engine_span_tree_counters_and_results(pg, alg, mode, entry):
     assert eng._prog.lanes == lanes
     grew = {k: after.get(k, 0) - before.get(k, 0) for k in after}
     assert grew == {"engine.lanes_scanned": steps * len(traced) * lanes,
-                    "engine.messages": sum(r.messages for r in traced)}
+                    "engine.messages": sum(r.messages for r in traced),
+                    "engine.supersteps": steps}
+
+
+def _grew(before):
+    after = obs.counters.snapshot()
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def _shard(kernel, pg):
+    return ShardEngine(kernel, pg, mesh=LocalMesh(4, "cpu"))
+
+
+def _offloaded(kernel, pg):
+    eng = Engine(kernel, pg, device="cpu")
+    assert eng.offload() > 0 and not eng.device_resident
+    return eng
+
+
+@pytest.mark.parametrize("entry", ["run", "run_batch"])
+@pytest.mark.parametrize("make", [
+    lambda k, pg: Engine(k, pg, device="cpu"), _offloaded, _shard],
+    ids=["cpu", "offloaded", "shard"])
+def test_eager_loops_count_supersteps_and_no_replays(pg, make, entry):
+    """The CPU engine, an offloaded one and the shard engine run the
+    eager loop: one ``engine.supersteps`` a step dispatch (the batch's
+    deepest query), never a graph replay or capture; their span tree is
+    the eager one."""
+    eng = make(TA.sssp(), pg)
+    for cap in (None, 3):
+        before = obs.counters.snapshot()
+        if entry == "run":
+            out, spans = _profiled(lambda: [eng.run(cap, root=9)])
+        else:
+            out, spans = _profiled(
+                lambda: eng.run_batch(cap, root=np.array([0, 9, 33])))
+        steps = max(r.supersteps for r in out)
+        assert steps == (cap or steps) and steps > 1
+        grew = _grew(before)
+        assert grew["engine.supersteps"] == steps
+        assert not {"engine.graph_replays", "engine.graph_captures"} & set(
+            grew)
+        names = collections.Counter(e.name for e, _ in spans)
+        assert names["engine.superstep"] == steps
+        assert names["engine.sync"] == steps + 1
+        assert names["engine.freeze"] == steps
+
+
+def test_one_device_engine_takes_no_graph_off_the_card(pg):
+    eng = Engine(TA.bfs(), pg, device="cpu")
+    assert eng._graph(1, {}) is None
+    eng.offload()
+    assert eng._graph(1, {}) is None and not eng._graphs
+
+
+@pytest.mark.parametrize("entry", ["run", "run_batch"])
+def test_run_eager_equals_run_and_takes_no_graph(pg, monkeypatch, entry):
+    """``run_eager`` gives what ``run`` / ``run_batch`` give, with the
+    same trace counts, and never asks for a graph."""
+    eng = Engine(TA.sssp(), pg, device="cpu")
+    twin = Engine(TA.sssp(), pg, device="cpu")
+    query = ({"root": 9} if entry == "run"
+             else {"root": np.array([0, 9, 33])})
+    want = getattr(twin, entry)(4, **query)
+    want = want if entry == "run_batch" else [want]
+    monkeypatch.setattr(Engine, "_graph", _no_graph)
+    got = eng.run_eager(entry, 4, **query)
+    assert eng.traces == twin.traces == 1
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a.supersteps, a.messages, a.comm) == (
+            b.supersteps, b.messages, b.comm)
+        for k in b.state:
+            np.testing.assert_array_equal(a.state[k], b.state[k])
+    with pytest.raises(ValueError, match="entry"):
+        eng.run_eager("lanes", root=9)
+
+
+def _no_graph(self, batch, qkw):
+    raise AssertionError("the call asked for a superstep graph")
+
+
+@pytest.mark.parametrize("scheduling", ["bucketed", "continuous"])
+def test_service_runs_the_eager_loop(monkeypatch, scheduling):
+    """The service's plans and steppers never ask for a superstep graph:
+    the store's budget charges an engine its data alone."""
+    monkeypatch.setattr(Engine, "_graph", _no_graph)
+    svc = GraphQueryService(device="cpu", scheduling=scheduling,
+                            max_batch=4)
+    svc.add_graph("g", TG.rmat(7, 6, seed=3, weighted=True).symmetrized())
+    svc.warm("g", "sssp")
+    before = obs.counters.snapshot()
+    futs = [svc.submit(QueryRequest("g", "sssp", {"root": r}))
+            for r in (0, 9, 33, 50, 61)]
+    svc.flush()
+    assert all(f.result(timeout=0).supersteps > 0 for f in futs)
+    grew = _grew(before)
+    assert not {"engine.graph_replays", "engine.graph_captures"} & set(grew)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8])
+@pytest.mark.parametrize("name", ["bfs", "wcc", "sssp", "pagerank",
+                                  "degree"])
+def test_graphed_loop_equals_the_eager_loop(pg, monkeypatch, name, batch):
+    """The graphed loop on the CPU, a capture standing in for each graph
+    (its replay runs the body): every call's carry equals the eager
+    loop's bit for bit, at the kernel's cap and at 2 supersteps, with
+    other roots each call; the init and the first superstep of the first
+    call run eagerly and capture, every later superstep is a replay, and
+    every later init a replay of the init graph."""
+    replayed = collections.Counter()
+
+    def capture(*bodies):
+        def stand_in(body):
+            def replay():
+                replayed[body.__name__] += 1
+                body()
+            return types.SimpleNamespace(replay=replay)
+        return [stand_in(body) for body in bodies]
+    monkeypatch.setattr(stepper, "_capture", capture)
+    kernel = TA.ALGORITHMS[name]()
+    eng = Engine(kernel, pg, device="cpu")
+    graph = stepper.SuperstepGraph(eng._prog, eng._data, eng.params, batch,
+                                   eng.device)
+    full = kernel.max_supersteps or 10_000
+    for i, cap in enumerate((full, 2, full)):
+        qkw = {}
+        if kernel.query_params:
+            roots = np.roll([0, 9, 33, 50, 61, 2, 7, 100], i)[:batch]
+            qkw = query_tensors(kernel, {"root": roots}, eng.device,
+                                batch=True)
+        want = eng._prog.run_loop(eng._data, cap, eng.params, qkw, batch)
+        before = obs.counters.snapshot()
+        got = graph.run_loop(cap, qkw)
+        assert replayed["_init"] == i
+        steps = int(want.superstep.max())
+        assert 0 < steps <= cap
+        for a, b in zip(_leaves(want), _leaves(got)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        grew = _grew(before)
+        assert grew["engine.supersteps"] == steps
+        assert grew.get("engine.graph_replays", 0) == steps - (i == 0)
+        assert grew.get("engine.graph_captures", 0) == (i == 0)
 
 
 def test_a_step_carry_is_freed_before_the_next_step(pg):

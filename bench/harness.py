@@ -10,6 +10,7 @@ none of these.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -107,6 +108,25 @@ class Ctx:
     graph: Any                      # gen.graphs.Edges
     t_start: float
     setup_s: Optional[float] = None
+    group: Any = None               # ranks.Group of a cell on many cards
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else self.group.rank
+
+    @property
+    def world(self) -> int:
+        return 1 if self.group is None else self.group.world
+
+    def agree(self, stop: bool) -> bool:
+        """Rank 0's ``stop`` on every rank, so that all close a window on
+        the same call (one tiny collective; ``stop`` itself on one card)."""
+        return stop if self.group is None else self.group.agree(stop)
+
+    def built(self) -> None:
+        """The program is built: on many cards, wait for every rank's."""
+        if self.group is not None:
+            self.group.built()
 
     def setup_done(self) -> None:
         self.setup_s = time.perf_counter() - self.t_start
@@ -209,42 +229,67 @@ def end_to_end(ctx: Ctx, win: Window, peak_bytes: int) -> Dict[str, float]:
     return out
 
 
+def window(torch, spec: Dict[str, Any], seed: int, seconds: float,
+           trace: bool, dev, t_start: float, group=None):
+    """The cell's graph from the seed, and its loop's set-up and window on
+    ``dev``: the :class:`Ctx` and the :class:`Window`. On many cards the
+    rank joins its group once it has the graph."""
+    from bench.gen import graphs
+    g = graphs.make(spec["config"]["graph"], seed)
+    if group is not None:
+        group.join()
+    ctx = Ctx(torch, dev, seed, seconds, trace, spec["config"],
+              spec["traffic"], g, t_start, group=group)
+    loop = _module("loops", spec["traffic"]["loop"])
+    return ctx, loop.run(ctx)
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
              device: str = "cuda", t_start: Optional[float] = None,
              spec: Optional[Dict[str, Any]] = None,
              control_dtype=None,
-             log: Callable[[str], None] = lambda s: print(s, file=sys.stderr)
-             ) -> Dict[str, Any]:
+             log: Callable[[str], None] = lambda s: print(s, file=sys.stderr),
+             launch: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """One run of ``workload``; returns the result line as a dict (the
     compared numbers last, under ``checks``). ``spec`` replaces the
     cell's entry from ``BENCHMARK.json`` (the tests' small cells);
     ``control_dtype`` judges the reference computed in that dtype in the
-    program's place (the control, never run by the benchmark)."""
+    program's place (the control, never run by the benchmark). A cell on
+    more than one card runs here as rank 0, on the card the one-chip
+    path uses, with a rank a card (``ranks.Launch``, which takes
+    ``launch`` as keyword arguments: the tests' faults and timeout)."""
     t_start = time.perf_counter() if t_start is None else t_start
     import torch
-    from bench.gen import graphs
-    from bench import devtrace
+    from bench import devtrace, ranks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = spec or cell(workload)
-    dev = torch.device(device)
-    g = graphs.make(spec["config"]["graph"], seed)
-    ctx = Ctx(torch, dev, seed, seconds, trace, spec["config"],
-              spec["traffic"], g, t_start)
-    loop = _module("loops", spec["traffic"]["loop"])
-    win: Window = loop.run(ctx)
-    cuda = dev.type == "cuda"
-    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    many = spec["entry"]["chips"] > 1
+    with (ranks.Launch(torch, spec, seed, seconds, trace, device,
+                       **(launch or {})) if many
+          else contextlib.nullcontext()) as ranked:
+        dev = ranked.group.device if many else torch.device(device)
+        ctx, win = window(torch, spec, seed, seconds, trace, dev, t_start,
+                          ranked.group if many else None)
+        cuda = dev.type == "cuda"
+        cards = [{"peak": torch.cuda.max_memory_allocated(dev) if cuda else 0,
+                  "busy_s": (devtrace.busy_s(win.trace)
+                             if trace and win.trace is not None else None),
+                  "forbidden": forbidden_modules()}]
+        if many:
+            cards += ranked.collect()
+    peak = max(c["peak"] for c in cards)
     e2e = end_to_end(ctx, win, peak)
     if cuda:
         torch.cuda.empty_cache()
 
-    found = forbidden_modules()
+    folded = ranks.fold(cards)
+    found = folded.pop("forbidden")
     if found:
         raise SystemExit(f"forbidden modules loaded: {found}")
     if control_dtype is not None:
-        control_answers(torch, g, win.queries, dev, control_dtype)
-    numbers, limits = judge(torch, g, win.queries, dev)
+        control_answers(torch, ctx.graph, win.queries, dev, control_dtype)
+    numbers, limits = judge(torch, ctx.graph, win.queries, dev)
     failed = sum(1 for q in win.queries if q.done is None or q.error)
     sampled = sum(1 for q in win.queries if q.sampled)
     checked = sum(1 for q in win.queries if q.sampled and q.answer is not None)
@@ -265,17 +310,24 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     else:
         metrics = {k: {"value": e2e[k], "unit": unit}
                    for k, unit in spec["end_to_end"].items()}
+    busy = folded.pop("busy_s", None)
     devinfo = {"platform": "gpu" if cuda else dev.type,
                "kind": torch.cuda.get_device_name(dev) if cuda else dev.type,
-               "count": 1, "memory_peak_bytes": int(peak)}
+               **folded}
     if cuda:
         devinfo["power_limit_w"] = power_limit_w()
     line = {"correct": correct, "attempted": len(win.queries),
             "failed": failed, "metrics": metrics, "device": devinfo}
     if trace and win.trace is not None:
-        devinfo["busy_s"] = devtrace.busy_s(win.trace)
+        devinfo["busy_s"] = busy
         devinfo["window_s"] = win.trace.window_s
         line["breakdown"] = devtrace.breakdown(win.trace)
+    if many:
+        line["ranks"] = {"rendezvous_s": ranked.group.rendezvous_s,
+                         "built_wait_s": ranked.group.built_wait_s}
+        log(f"ranks: rendezvous {ranked.group.rendezvous_s} s, rank 0 "
+            f"waited {ranked.group.built_wait_s} s for the slowest build; "
+            f"peaks by card {folded['memory_peak_bytes_by_card']}")
     if "issue_late_ms_max" in win.counters:
         # beside the latency: how far the open loop's issue of a query
         # fell behind its due time, and how long the service's submit

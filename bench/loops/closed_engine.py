@@ -6,6 +6,12 @@ The window closes with the first call that ends past ``--seconds``; its
 length is the time to that call's end, so every call in it is whole.
 The check compares the answers of ``sample`` calls, drawn from the seed
 by reservoir sampling over the calls made.
+
+:func:`drive` is the loop over any engine with ``run`` and ``run_batch``
+(``closed_shard`` drives the shard engine with it). On many ranks every
+rank makes the same calls, and each decision of the loop (where the
+profiled part starts and stops, where the window closes) is rank 0's,
+through ``ctx.agree``.
 """
 from __future__ import annotations
 
@@ -22,8 +28,16 @@ PROFILE_AT, PROFILE_S = 0.4, 1.0   # the traced part: whole calls from here
 
 
 def run(ctx) -> Window:
-    from repro_torch.core import algorithms as ALG
     from repro_torch.core.engine import Engine
+    mode = ctx.config["deployment"]["mode"]
+    return drive(ctx, lambda kernel, pg: Engine(kernel, pg, mode=mode,
+                                                device=ctx.device))
+
+
+def drive(ctx, make) -> Window:
+    """The closed loop over ``make(kernel, pg)``, the engine of the mix's
+    kernel over the configuration's partition of the graph."""
+    from repro_torch.core import algorithms as ALG
     from repro_torch.core.partition import partition_graph
     mix, dep = ctx.traffic, ctx.config["deployment"]
     rng = np.random.default_rng(ctx.seed)
@@ -39,8 +53,8 @@ def run(ctx) -> Window:
 
     pg = partition_graph(ctx.port_graph(), dep["parts"],
                          method=dep["partition"])
-    eng = Engine(ALG.ALGORITHMS[mix["kernel"]](**mix.get("params", {})), pg,
-                 mode=dep["mode"], device=ctx.device)
+    eng = make(ALG.ALGORITHMS[mix["kernel"]](**mix.get("params", {})), pg)
+    ctx.built()
 
     def call(params):
         if not batch:
@@ -61,7 +75,7 @@ def run(ctx) -> Window:
     while True:
         start = time.perf_counter() - t0
         if prof is not None and prof_from is None \
-                and start >= PROFILE_AT * ctx.seconds:
+                and ctx.agree(start >= PROFILE_AT * ctx.seconds):
             prof_t0 = start
             prof.start()
             prof_from = time.perf_counter() - t0
@@ -72,7 +86,7 @@ def run(ctx) -> Window:
         steps = max(r.supersteps for r in results)
         if profiled:
             profiled_steps += steps
-            if end - prof_from >= PROFILE_S:
+            if ctx.agree(end - prof_from >= PROFILE_S):
                 trace = prof.stop()
                 counters["profiled_s"] = time.perf_counter() - t0 - prof_t0
         mine = [Query(mix["kernel"], p, start, end, traced=profiled)
@@ -92,7 +106,7 @@ def run(ctx) -> Window:
             for q, r in zip(mine, results):
                 q.sampled, q.answer = True, r.state
         del results
-        if end >= ctx.seconds:
+        if ctx.agree(end >= ctx.seconds):
             break
     if prof is not None and trace is None:
         if prof_from is None:

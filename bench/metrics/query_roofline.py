@@ -2,9 +2,9 @@
 measured window: the least bytes an iteration needs, counted from the
 graph's shapes (CSR column indices and offsets read once, ranks and
 out-degrees read once, ranks written once, 4 B each) times the
-iterations completed, over the card's published HBM rate times the
-window, in percent. The count depends on the work alone, so no
-implementation reads above 100 %."""
+iterations completed, over the published HBM rate of every card the cell
+uses times the window, in percent. The count depends on the work alone,
+so no implementation reads above 100 %."""
 from bench.metrics._common import hbm_bytes_per_s
 
 
@@ -24,4 +24,4 @@ def read(run):
         return None
     g = run["ctx"].graph
     return (100.0 * iters * iteration_bytes(g.num_vertices, g.num_edges)
-            / (rate * quiet_s))
+            / (rate * run["ctx"].world * quiet_s))

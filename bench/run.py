@@ -8,6 +8,15 @@ the service's trace events and a profiled part of the window). Without a
 CUDA device, or with fewer than the cell asks for, it exits 2 and prints
 no line. The numbers the check compared go last, on standard error and
 in the line.
+
+A cell whose ``chips`` is above 1 runs as one rank a card
+(``bench/ranks.py``), on a host with that many cards and the same
+command: this process is rank 0, on the card a one-chip cell uses, and
+starts ranks 1 .. chips-1 on ``cuda:1`` .. with the same arguments; the
+ranks form one NCCL group. Only rank 0 prints the line; its ``device``
+block reads the fullest card's peak, lists each card's, and counts the
+ranks. The rank machinery runs on the CPU over gloo in the tests'
+four-rank small cell: ``python -m pytest bench/tests/test_bench_ranks.py``.
 """
 from __future__ import annotations
 

@@ -55,3 +55,30 @@ def spec(workload: str) -> dict:
 def run(workload: str, seed: int = 7, trace: bool = False, **kw) -> dict:
     return harness.run_cell(workload, seed, SECONDS, trace, device="cpu",
                             spec=spec(workload), log=lambda s: None, **kw)
+
+
+# The four-rank small cell: the paper's four-node deployment as the next
+# configuration would state it (PERF.md, Open questions), one partition a
+# rank, the allgather exchange, PageRank-30 by ``closed_shard``; over gloo,
+# each rank a CPU process.
+RANKS = 4
+
+
+def shard_spec() -> dict:
+    out = copy.deepcopy(cell("g500-s20-pagerank-closed"))
+    out["entry"] = {"name": "g500-s10-shard4-pagerank-closed",
+                    "config": "graph500-rmat10-shard4",
+                    "traffic": "pagerank30-closed-shard", "chips": RANKS}
+    out["config"]["graph"]["params"]["scale"] = 10
+    out["config"]["deployment"] = {"parts": RANKS, "partition": "greedy",
+                                   "exchange": "allgather"}
+    out["traffic"]["loop"] = "closed_shard"
+    return out
+
+
+def run_ranks(seed: int = 7, trace: bool = False, device: str = "cpu",
+              **kw) -> dict:
+    """The four-rank small cell through ``run_cell``, this process rank 0
+    (the tests run it in a process of its own)."""
+    return harness.run_cell(shard_spec()["entry"]["name"], seed, SECONDS,
+                            trace, device=device, spec=shard_spec(), **kw)

@@ -2,6 +2,7 @@
 it gives against the files the harness finds by that name."""
 from __future__ import annotations
 
+import copy
 import importlib.util
 import json
 import re
@@ -44,12 +45,20 @@ def test_names_units_and_lines():
         assert LINE.match(text), text
 
 
+def four_chip_rule(workloads) -> bool:
+    """The benchmark's rule on chips: a cell takes 1 or 4, and at most
+    max(1, cells // 4) cells take 4."""
+    chips = [w["chips"] for w in workloads]
+    return (all(c in (1, 4) for c in chips)
+            and chips.count(4) <= max(1, len(chips) // 4))
+
+
 def test_entry_keys():
     for c in M["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
     for w in M["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1
+    assert four_chip_rule(M["workloads"])
     for m in M["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
                                           "source"}
@@ -60,6 +69,20 @@ def test_entry_keys():
                                           "layer", "moves"}
         assert m["source"] in ("device_trace", "program_span",
                                "program_counter", "host_clock")
+
+
+def _cells(chips):
+    """Copies of the manifest's first cell, one for each entry of
+    ``chips``, taking that many chips."""
+    return [dict(copy.deepcopy(M["workloads"][0]), name=f"c{i}", chips=n)
+            for i, n in enumerate(chips)]
+
+
+@pytest.mark.parametrize("chips,holds", [
+    ((1, 4, 1), True), ((4,), True), ((4, 1, 1, 1, 1, 1, 1, 4), True),
+    ((4, 4, 1), False), ((1, 2, 1), False), ((4, 1, 1, 1, 1, 1, 4), False)])
+def test_four_chip_rule_on_copies(chips, holds):
+    assert four_chip_rule(_cells(chips)) is holds
 
 
 def reported(cell: str, metric: dict) -> bool:

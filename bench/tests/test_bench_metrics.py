@@ -88,9 +88,9 @@ def test_byte_counts():
 
 
 def run_record(trace, *, counters=None, queries=(), graph=(1000, 16000),
-               traffic=None, window_s=10.0):
+               traffic=None, window_s=10.0, world=1):
     g = types.SimpleNamespace(num_vertices=graph[0], num_edges=graph[1])
-    ctx = types.SimpleNamespace(graph=g, traffic=traffic or {})
+    ctx = types.SimpleNamespace(graph=g, traffic=traffic or {}, world=world)
     win = harness.Window(list(queries), window_s, counters or {}, trace)
     return {"ctx": ctx, "window": win, "trace": trace,
             "counters": counters or {}, "kind": "NVIDIA H100 80GB HBM3",
@@ -117,6 +117,12 @@ def test_readers_on_a_synthetic_trace():
     assert reader("k1_roofline").read(run) is None
 
 
+def test_k1_roofline_reads_nothing_on_many_ranks():
+    """On four ranks the kernel's launches are K2's over one shard."""
+    tr = trace_of([("segment_combine_kernel<float>", 0, 50)])
+    assert reader("k1_roofline").read(run_record(tr, world=4)) is None
+
+
 def test_query_roofline_and_service_readers():
     done = [harness.Query("pagerank", {"num_supersteps": 30}, 0.0, 1.0)] * 4
     run = run_record(None, counters={"profiled_s": 2.0}, queries=done + [
@@ -125,6 +131,9 @@ def test_query_roofline_and_service_readers():
                       traced=True)])
     want = 100.0 * 120 * (4 * 16000 + 4 * 1001 + 12 * 1000) / (1e9 * 8.0)
     assert reader("query_roofline").read(run) == pytest.approx(want)
+    # four cards: four cards' rate
+    run["ctx"].world = 4
+    assert reader("query_roofline").read(run) == pytest.approx(want / 4)
     ev = types.SimpleNamespace
     events = [ev(kind="submit", ts=0.0, qid=1, attrs={}),
               ev(kind="admit", ts=0.010, qid=1, attrs={}),
